@@ -1,0 +1,17 @@
+"""Where the port's entry points run: the card unless the caller asks for
+the CPU."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means ``"cuda"``. A CUDA device without a GPU raises: the port
+    never falls back to the CPU on its own."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
