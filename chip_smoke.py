@@ -8,13 +8,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. card: the card's name and power limit (nvidia-smi); TF32 off for
    convolutions and matmuls, so float32 stays float32 everywhere.
-2. build: nvcc builds the CUDA kernel from segmentation_pipeline_torch/csrc.
+2. build: nvcc builds both CUDA sources from segmentation_pipeline_torch/csrc
+   (the conv kernel, which also runs the input gradient dX, and the weight
+   gradient dW), in parallel, and prints their -Xptxas -v logs.
 3. kernels: the 3x3x3 conv kernel at each (spatial size, Cin, Cout) class of
    NestedResUNet-40 at the serving batch (8 half-volumes), in float32 and
    bfloat16, held against its plain PyTorch version on the same inputs and
    timed with CUDA events beside the plain version, F.conv3d (cuDNN) and the
    card's bound.
-4. slice: dmri_hippo whole-volume inference, as a user calls it:
+4. gradient kernels: dX at every input-gradient class of the train step (the
+   forward classes with Cin and Cout swapped, except the convs that read the
+   network's input) and dW at every forward class, at the training batch
+   (the same 8 half-volumes), in float32 and bfloat16, held against their
+   plain versions and timed beside them, cuDNN's gradients
+   (torch.nn.grad.conv3d_input / conv3d_weight) and the bound.
+5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
    flax layout from --seed and loaded through the weight bridge. Three
@@ -23,6 +31,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the first subject against the port run on the CPU, and a NIfTI round trip.
    One more float32 request runs under torch.profiler for the device time by
    kernel and the device's idle share.
+6. train: the dmri_hippo train step, as the trainer calls it:
+   make_train_step(sagittal_split=True) with HybridLogisticDiceLoss and
+   Adam(lr=2e-4) on SegModel(NestedResUNet(3 -> 2, filters=40,
+   dropout_p=0.2)), random flax-layout weights from --seed, a batch of 4
+   subjects of 3x96x88x24 with labels as bench.py makes them, dropout drawn
+   from a torch.Generator on the card. 2 warm-up and 5 timed steps in
+   float32, then the same in bfloat16; ms per step, volumes/s, peak memory,
+   the losses; the kernels' launches per step by class (25 forward, 23 dX,
+   25 dW); running statistics that moved and conv weights with nonzero
+   gradients. One more float32 step runs under torch.profiler.
+7. card against CPU: one float32 train step at dropout 0, the same weights
+   and the first subject, on the card and on the port on the CPU: the loss
+   and every parameter's gradient, beside how far a 1e-7 change of the
+   input moves the CPU's own gradients.
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -43,11 +65,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from segmentation_pipeline_torch import LabelMap, ScalarImage, Subject
+from segmentation_pipeline_torch import (Adam, HybridLogisticDiceLoss, LabelMap, ScalarImage,
+                                         Subject, collate_to_device, create_train_state,
+                                         make_train_step)
 from segmentation_pipeline_torch.core.nifti import read_nifti, write_nifti
-from segmentation_pipeline_torch.models import NestedResUNet, flax_to_state_dict
+from segmentation_pipeline_torch.models import Conv3d, NestedResUNet, flax_to_state_dict
 from segmentation_pipeline_torch.ops import build, conv3x3
-from segmentation_pipeline_torch.ops.conv3x3 import conv3x3_s1p1, conv3x3_s1p1_plain
+from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_dw,
+                                                     conv3x3_s1p1_dw_plain, conv3x3_s1p1_dx,
+                                                     conv3x3_s1p1_dx_plain, conv3x3_s1p1_plain,
+                                                     reset_launch_counts)
 from segmentation_pipeline_torch.prediction import (StandardPredict, reverse_split_and_flip,
                                                     split_and_flip)
 from segmentation_pipeline_torch.training.model import SegModel
@@ -69,6 +96,16 @@ CONVS_PER_FORWARD = 25
 SUBJECTS_PER_REQUEST = 4
 CROP = (96, 88, 24)
 IN_CHANNELS, OUT_CHANNELS, FILTERS = 3, 2, 40
+# The input gradient runs for every conv but the two that read the network's
+# input: ((W, H, D), Cout, Cin) of the forward (the conv dX runs), launches
+# per train step.
+DX_CLASSES = [(spatial, cout, cin, n) for spatial, cin, cout, n in CONV_CLASSES
+              if cin != IN_CHANNELS]
+DX_PER_STEP = 23
+TRAIN_STEPS, WARMUP_STEPS = 5, 2
+REPLACES = {"fwd": "segmentation_pipeline_tpu/ops/pallas_conv.py:64",
+            "dx": "segmentation_pipeline_tpu/ops/pallas_conv.py:120",
+            "dw": "segmentation_pipeline_tpu/ops/pallas_conv.py:129-142"}
 # (name, input width in units of filters (0: the network's input), residual)
 BLOCKS = [("conv0_0", 0, True), ("conv1_0", 1, False), ("conv0_1", 2, True),
           ("conv2_0", 1, False), ("conv1_1", 3, False), ("conv0_2", 2, True),
@@ -82,6 +119,16 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # The card's float32 answer against the port on the CPU: rounding only.
 CPU_PROB_TOL = 1e-4
 CPU_TIE = 1e-3
+# The card's float32 train step against the port's on the CPU, each
+# parameter's gradient relative to its max|grad|: sums in another order
+# through 25 convs and 20 BatchNorms, forward and backward. The step on one
+# subject is ill-conditioned in float32 (BatchNorm statistics of 2 half-
+# volumes, ReLU kinks): a 1e-7 relative change of the input moves the CPU's
+# own gradients by a few 1e-3 of max|grad|, which the comparison prints. A
+# faulty kernel moves them by O(1); each kernel is also held to 1e-4 of its
+# plain version in the kernel phases.
+CPU_GRAD_TOL = 2e-2
+CPU_LOSS_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -145,7 +192,7 @@ def kernel_phase(device, batch: int, seed: int, card: str):
                 "name": name,
                 "route": "cuda",
                 "source": "segmentation_pipeline_torch/csrc/conv3x3_s1p1.cu",
-                "replaces": "segmentation_pipeline_tpu/ops/pallas_conv.py:64",
+                "replaces": REPLACES["fwd"],
                 "launches": None,
                 "max_abs_err": err,
                 "ms": time_ms(lambda: conv3x3_s1p1(x, k)),
@@ -154,12 +201,82 @@ def kernel_phase(device, batch: int, seed: int, card: str):
                 "bound_by": b_by,
                 "library_ms": time_ms(lambda: F.conv3d(x_ncdhw, w_oi, padding=1)),
                 "_key": (str(dtype), batch, *spatial, cin, cout),
+                "_kind": "fwd",
             })
             print(f"kernel {name}: err {err:.3g} (max|ref| {scale:.3g}) "
                   f"ms {rows[-1]['ms']:.4f} plain {rows[-1]['plain_ms']:.4f} "
                   f"cuDNN {rows[-1]['library_ms']:.4f} bound {b_ms:.4f} ({b_by}) [{card}]",
                   flush=True)
             del x, k, out, ref, x_ncdhw, w_oi
+    return rows
+
+
+def grad_kernel_phase(device, batch: int, seed: int, card: str):
+    """dX at each input-gradient class and dW at each forward class, in f32
+    and bf16: check against the plain versions and time kernel, plain
+    version and cuDNN's gradient."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def uniform(dtype, *shape, scale=1.0):
+        return ((torch.rand(shape, generator=gen, device=device) * 2 - 1) * scale).to(dtype)
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for spatial, cin, cout, _ in CONV_CLASSES:
+            x = uniform(dtype, batch, *spatial, cin)
+            g = uniform(dtype, batch, *spatial, cout)
+            k = uniform(dtype, 3, 3, 3, cin, cout, scale=1 / np.sqrt(27 * cin))
+            x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
+            g_ncdhw = g.permute(0, 4, 1, 2, 3).contiguous()
+            w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
+            b_ms, b_by = bound_ms(batch, spatial, cin, cout, dtype)
+            cases = []
+            if cin != IN_CHANNELS:
+                cases.append(("dx", cout, cin, lambda: conv3x3_s1p1_dx(g, k),
+                              lambda: conv3x3_s1p1_dx_plain(g, k),
+                              lambda: conv3x3_s1p1_dx_plain(g.float(), k.float()),
+                              lambda: torch.nn.grad.conv3d_input(x_ncdhw.shape, w_oi,
+                                                                 g_ncdhw, padding=1)))
+            cases.append(("dw", cin, cout, lambda: conv3x3_s1p1_dw(x, g),
+                          lambda: conv3x3_s1p1_dw_plain(x, g),
+                          lambda: conv3x3_s1p1_dw_plain(x.float(), g.float()),
+                          lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_oi.shape, g_ncdhw,
+                                                              padding=1)))
+            for kind, c_in, c_out, kernel, plain, reference, library in cases:
+                out, ref = kernel(), reference()
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                name = f"conv3x3_s1p1_{kind}_{DTYPE_NAMES[dtype]} " \
+                       f"{batch}x{'x'.join(map(str, spatial))} {c_in}->{c_out}"
+                if not (out.shape == ref.shape and out.dtype == dtype
+                        and err <= KERNEL_TOL[dtype] * scale):
+                    raise AssertionError(f"{name}: max abs err {err} > "
+                                         f"{KERNEL_TOL[dtype]} * {scale}")
+                if kind == "dw" and not torch.equal(out, kernel()):
+                    raise AssertionError(f"{name}: two runs differ")
+                source = conv3x3.SOURCE if kind == "dx" else conv3x3.DW_SOURCE
+                rows.append({
+                    "name": name,
+                    "route": "cuda",
+                    "source": f"segmentation_pipeline_torch/csrc/{source}",
+                    "replaces": REPLACES[kind],
+                    "launches": None,
+                    "max_abs_err": err,
+                    "ms": time_ms(kernel),
+                    "plain_ms": time_ms(plain, trials=10, calls=1),
+                    "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "library_ms": time_ms(library),
+                    "_key": (str(dtype), batch, *spatial, c_in, c_out),
+                    "_kind": kind,
+                })
+                print(f"kernel {name}: err {err:.3g} (max|ref| {scale:.3g}) "
+                      f"ms {rows[-1]['ms']:.4f} plain {rows[-1]['plain_ms']:.4f} "
+                      f"cuDNN {rows[-1]['library_ms']:.4f} bound {b_ms:.4f} ({b_by}) [{card}]",
+                      flush=True)
+                del out, ref
+            del x, g, k, x_ncdhw, g_ncdhw, w_oi, cases
     return rows
 
 
@@ -353,6 +470,173 @@ def slice_phase(card, seed, rows):
         row["launches"] = got[row["_key"]]
 
 
+def train_batch(rng: np.random.Generator, subjects: int):
+    """Channel-first X of N(0, 1) values and two-class one-hot labels from
+    its first channel, as bench.py makes them."""
+    X = rng.normal(size=(subjects, IN_CHANNELS, *CROP)).astype(np.float32)
+    lab = (X[:, 0] > 0.5).astype(np.float32)
+    return {"X": X, "y": np.stack([1 - lab, lab], axis=1)}
+
+
+def expected_train_launches(dtype, steps, batch):
+    """Forward, dX and dW launches by shape over ``steps`` train steps."""
+    fwd = expected_launches(dtype, steps, batch)
+    dx = Counter({(str(dtype), batch, *spatial, cin, cout): n * steps
+                  for spatial, cin, cout, n in DX_CLASSES})
+    return {"fwd": fwd, "dx": dx, "dw": fwd}
+
+
+def launch_counts():
+    return {kind: Counter(w.launches_by_shape) for kind, w in
+            (("fwd", conv3x3_s1p1), ("dx", conv3x3_s1p1_dx), ("dw", conv3x3_s1p1_dw))}
+
+
+def profile_train_step(step, state, batch, generator, card):
+    """One float32 train step under torch.profiler: device busy time, idle
+    share and the kernels that take the most device time (the forward and
+    dX share the kernel conv3x3_s1p1_kernel; dW is dw_partial_kernel and
+    dw_reduce_kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    if not events:
+        print(f"profile train step: no device time traced; busy share not measured [{card}]")
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile (f32 train step): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
+    for e in events[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
+    for label, needle in (("conv3x3_s1p1_kernel (forward + dX)", "conv3x3_s1p1_kernel"),
+                          ("dw_partial_kernel + dw_reduce_kernel (dW)", "dw_")):
+        ms = sum(e.self_device_time_total for e in events if needle in e.key) / 1e3
+        print(f"profile train step: {label} {ms:.3f} ms of {busy_ms:.3f} ms device time",
+              flush=True)
+
+
+def train_phase(card, seed, rows):
+    """The dmri_hippo train step on the card, f32 then bf16; fills the
+    launches per step of the gradient kernels' rows."""
+    rng = np.random.default_rng(seed + 2)
+    state_dict = flax_to_state_dict(flax_weights(rng))
+    batch_cf = train_batch(rng, SUBJECTS_PER_REQUEST)
+    model = SegModel(NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS, dropout_p=0.2),
+                     device="cuda")
+    model.load_state_dict(state_dict)
+    optimizer, criterion = Adam(lr=2e-4), HybridLogisticDiceLoss()
+    state = create_train_state(model, optimizer, batch_cf)
+    batch = collate_to_device(batch_cf)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    half_batch = 2 * SUBJECTS_PER_REQUEST
+    per_step = {}
+    steps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        step = make_train_step(model.module, criterion, optimizer, sagittal_split=True,
+                               compute_dtype=None if dtype == torch.float32 else "bfloat16")
+        steps[dtype] = step
+        for _ in range(WARMUP_STEPS):
+            state, _, _ = step(state, batch, generator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, loss_dict, y_pred = step(state, batch, generator)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss_dict["loss"])
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [loss.item() for loss in losses]
+        name = DTYPE_NAMES[dtype]
+        assert all(np.isfinite(losses)), losses
+        assert tuple(y_pred.shape) == (SUBJECTS_PER_REQUEST, *CROP, OUT_CHANNELS)
+        assert torch.isfinite(y_pred).all().item()
+        assert [sum(c.values()) for c in counts.values()] == \
+            [CONVS_PER_FORWARD * TRAIN_STEPS, DX_PER_STEP * TRAIN_STEPS,
+             CONVS_PER_FORWARD * TRAIN_STEPS], counts
+        assert counts == expected_train_launches(dtype, TRAIN_STEPS, half_batch), counts
+        per_step[str(dtype)] = counts
+        med = statistics.median(times)
+        print(f"train {name} steps: " + ", ".join(f"{t:.3f}" for t in times) + " ms", flush=True)
+        print(f"train {name}: median {med:.3f} ms per step, "
+              f"{SUBJECTS_PER_REQUEST / med * 1e3:.3f} volumes/s, max_memory_allocated "
+              f"{peak} bytes; losses " + ", ".join(f"{v:.6f}" for v in losses)
+              + f"; launches per step forward {counts['fwd'].total() // TRAIN_STEPS}, "
+              f"dX {counts['dx'].total() // TRAIN_STEPS}, dW {counts['dw'].total() // TRAIN_STEPS}"
+              f" [{card}]", flush=True)
+
+    moved = [k for k, v in state.batch_stats.items() if not torch.equal(v.cpu(), state_dict[k])]
+    assert len(moved) == len(state.batch_stats), "running statistics that did not move"
+    conv_weights = [m.weight for m in model.module.modules() if isinstance(m, Conv3d)]
+    assert len(conv_weights) == CONVS_PER_FORWARD
+    assert all(w.grad is not None and torch.isfinite(w.grad).all().item()
+               and w.grad.abs().max().item() > 0 for w in conv_weights)
+    print(f"train: {len(moved)} running statistics moved; all {len(conv_weights)} conv "
+          f"weights have finite, nonzero gradients", flush=True)
+    profile_train_step(steps[torch.float32], state, batch, generator, card)
+
+    for row in rows:
+        if row["_kind"] == "fwd":
+            continue
+        count = per_step[row["_key"][0]][row["_kind"]][row["_key"]]
+        assert count % TRAIN_STEPS == 0 and count > 0, (row["name"], count)
+        row["launches"] = count // TRAIN_STEPS
+    return state_dict, batch_cf
+
+
+def cpu_train_comparison(card, state_dict, batch_cf):
+    """One f32 train step at dropout 0 on the first subject of the training
+    batch, on the card and on the port on the CPU: the loss and every
+    parameter's gradient. One more CPU step, on the input changed by about
+    1e-7 relative, shows how far float32 rounding alone moves the
+    gradients."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    one = {k: v[:1] for k, v in batch_cf.items()}
+    noise = np.random.default_rng(0).standard_normal(one["X"].shape)
+    nudged = dict(one, X=(one["X"] * (1 + 1e-7 * noise)).astype(np.float32))
+
+    def run(device, batch):
+        model = SegModel(NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS),
+                         device=device)
+        model.load_state_dict(state_dict)
+        optimizer = Adam(lr=2e-4)
+        state = create_train_state(model, optimizer, batch)
+        step = make_train_step(model.module, HybridLogisticDiceLoss(), optimizer,
+                               sagittal_split=True)
+        t0 = time.perf_counter()
+        state, loss_dict, _ = step(state, collate_to_device(batch, device=device), None)
+        loss = loss_dict["loss"].item()
+        return (loss, {k: p.grad.detach().cpu() for k, p in state.params.items()},
+                time.perf_counter() - t0)
+
+    def worst(grads, ref):
+        return max(((grads[k] - g).abs().max().item() / g.abs().max().item(), k)
+                   for k, g in ref.items())
+
+    (loss_gpu, grads_gpu, _), (loss_cpu, grads_cpu, cpu_s) = run("cuda", one), run("cpu", one)
+    _, grads_nudged, _ = run("cpu", nudged)
+    card_diff, own = worst(grads_gpu, grads_cpu), worst(grads_nudged, grads_cpu)
+    loss_diff = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f"train f32 vs CPU port (first subject, dropout 0): loss {loss_gpu:.7f} vs "
+          f"{loss_cpu:.7f} (rel diff {loss_diff:.3g}); worst gradient max abs diff / "
+          f"max|grad| {card_diff[0]:.3g} at {card_diff[1]} over {len(grads_cpu)} parameters; "
+          f"the CPU against itself on the input changed by 1e-7: {own[0]:.3g} at {own[1]}; "
+          f"CPU step took {cpu_s:.1f} s [{card}]", flush=True)
+    assert loss_diff <= CPU_LOSS_TOL and card_diff[0] <= CPU_GRAD_TOL
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -370,16 +654,22 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    build.build([conv3x3.SOURCE])
+    build.build(conv3x3.SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(build.build_logs.get(conv3x3.SOURCE, "(library was already built)").strip(),
-          flush=True)
+    for source in conv3x3.SOURCES:
+        print(f"{source}:\n" + build.build_logs.get(source, "(library was already built)").strip(),
+              flush=True)
 
-    rows = kernel_phase(torch.device("cuda"), 2 * SUBJECTS_PER_REQUEST, args.seed, card)
+    device, half_batch = torch.device("cuda"), 2 * SUBJECTS_PER_REQUEST
+    rows = kernel_phase(device, half_batch, args.seed, card)
+    grad_rows = grad_kernel_phase(device, half_batch, args.seed, card)
     slice_phase(card, args.seed, rows)
+    state_dict, batch_cf = train_phase(card, args.seed, grad_rows)
+    cpu_train_comparison(card, state_dict, batch_cf)
 
+    rows += grad_rows
     for row in rows:
-        del row["_key"]
+        del row["_key"], row["_kind"]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 
 Mirrors segmentation_pipeline_tpu/ops/convolution.py. Every model conv routes
 through ``conv3d``: the 3x3x3 / stride 1 / padding 1 class goes to the
-hand-written kernel (``ops/conv3x3.py``; its plain version on CPU tensors),
-any other shape to ``F.conv3d``, as the JAX package sends those to XLA.
+hand-written kernels through their autograd Function (``ops/conv3x3.py``;
+plain versions on CPU tensors), any other shape to ``F.conv3d``, whose
+gradients are cuDNN's, as the JAX package sends those to XLA.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from .conv3x3 import conv3x3_s1p1
+from .conv3x3 import Conv3x3S1P1
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -33,7 +34,7 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor,
     padding = _triple(padding)
     if tuple(kernel.shape[:3]) == (3, 3, 3) and stride == (1, 1, 1) \
             and padding == (1, 1, 1):
-        return conv3x3_s1p1(x.contiguous(), kernel.contiguous())
+        return Conv3x3S1P1.apply(x.contiguous(), kernel.contiguous())
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2),
                  stride=stride, padding=padding)
     return y.permute(0, 2, 3, 4, 1)

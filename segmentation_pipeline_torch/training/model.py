@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.components import Conv3d
+from ..models.components import BatchNorm, Conv3d
 
 
 def to_channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -28,7 +28,9 @@ def to_channels_first(x: torch.Tensor) -> torch.Tensor:
 
 
 class SegModel:
-    """Owns the module and its device; runs it in eval mode."""
+    """Owns the module and its device; runs it in eval mode. A train step
+    (training/train_step.py) updates the module in place, so calls after it
+    serve the trained weights."""
 
     def __init__(self, module: nn.Module, seed: int = 0, compute_dtype: Optional[str] = None,
                  device=None):
@@ -51,9 +53,23 @@ class SegModel:
         for module in self.module.modules():
             if isinstance(module, Conv3d):
                 module.reset_parameters(generator)
-            elif isinstance(module, nn.BatchNorm3d):
+            elif isinstance(module, BatchNorm):
                 module.reset_parameters()
         self.initialized = True
+
+    @property
+    def params(self) -> Dict[str, nn.Parameter]:
+        """The module's parameters by state-dict name (live: training
+        updates them in place)."""
+        self.ensure_initialized()
+        return dict(self.module.named_parameters())
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The BatchNorm running statistics by state-dict name (live)."""
+        self.ensure_initialized()
+        return {name: buf for name, buf in self.module.named_buffers()
+                if name.endswith(("running_mean", "running_var"))}
 
     # ---- inference -----------------------------------------------------
     def _dtype(self) -> Optional[torch.dtype]:

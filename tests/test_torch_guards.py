@@ -61,3 +61,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         StandardPredict()
     assert tsp.collate_subjects([subject], ["X"], device="cpu")["X"].device.type == "cpu"
+    batch = {"X": np.zeros((1, 1, 2, 2, 2), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsp.collate_to_device(batch)
+    assert tsp.collate_to_device(batch, device="cpu")["X"].device.type == "cpu"
+    model = tsp.SegModel(tsp.NestedResUNet(1, 2, filters=2), device="cpu")
+    state = tsp.create_train_state(model, tsp.Adam(), batch)
+    assert all(p.device.type == "cpu" for p in state.params.values())
+    # a model placed on the card (made, or unpickled, where one was)
+    model.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsp.create_train_state(model, tsp.Adam(), batch)

@@ -1,4 +1,5 @@
-"""The hand-written 3x3x3 conv kernel's wrapper and its plain version.
+"""The hand-written 3x3x3 conv kernels' wrappers (forward, input gradient
+dX, weight gradient dW), their autograd Function and their plain versions.
 
 This file imports neither JAX nor the JAX package, so that the tests marked
 ``cuda`` also run on a machine with a GPU and only the port installed:
@@ -11,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from segmentation_pipeline_torch.ops.conv3x3 import conv3x3_s1p1, conv3x3_s1p1_plain
+from segmentation_pipeline_torch.ops.conv3x3 import (WRAPPERS, Conv3x3S1P1, conv3x3_s1p1,
+                                                     conv3x3_s1p1_dw, conv3x3_s1p1_dw_plain,
+                                                     conv3x3_s1p1_dx, conv3x3_s1p1_dx_plain,
+                                                     conv3x3_s1p1_plain)
 
 torch.set_num_threads(2)
 
@@ -44,6 +48,46 @@ def test_cpu_calls_do_not_count_launches():
     assert conv3x3_s1p1.launches == before
 
 
+def test_function_on_cpu_runs_plain_versions_and_counts_no_launches():
+    before = [w.launches for w in WRAPPERS]
+    x = torch.from_numpy(_normal((1, 3, 4, 2, 3), 1)).requires_grad_()
+    k = torch.from_numpy(_normal((3, 3, 3, 3, 2), 2)).requires_grad_()
+    g = torch.from_numpy(_normal((1, 3, 4, 2, 2), 3))
+    Conv3x3S1P1.apply(x, k).backward(g)
+    assert [w.launches for w in WRAPPERS] == before
+    assert torch.equal(x.grad, conv3x3_s1p1_dx_plain(g, k.detach()))
+    assert torch.equal(k.grad, conv3x3_s1p1_dw_plain(x.detach(), g))
+
+
+@pytest.mark.parametrize("g_shape,k_shape", [((1, 2, 2, 2, 3), (3, 3, 3, 4, 2)),
+                                             ((2, 2, 2, 3), (3, 3, 3, 3, 3)),
+                                             ((1, 2, 2, 2, 3), (3, 3, 1, 3, 3))])
+def test_dx_wrapper_rejects_what_the_kernel_does_not_take(g_shape, k_shape):
+    with pytest.raises(ValueError):
+        conv3x3_s1p1_dx(torch.zeros(g_shape), torch.zeros(k_shape))
+
+
+@pytest.mark.parametrize("x_shape,g_shape", [((1, 2, 2, 2, 3), (1, 2, 2, 3, 2)),
+                                             ((2, 2, 2, 3), (2, 2, 2, 3)),
+                                             ((1, 2, 2, 2, 3), (2, 2, 2, 2, 3))])
+def test_dw_wrapper_rejects_what_the_kernel_does_not_take(x_shape, g_shape):
+    with pytest.raises(ValueError):
+        conv3x3_s1p1_dw(torch.zeros(x_shape), torch.zeros(g_shape))
+
+
+def test_dw_plain_is_the_definition():
+    """dk[tap, ci, co] = sum over voxels of x shifted by the tap times g, x
+    zero outside the volume: a loop over voxels in float64."""
+    x = _normal((1, 3, 2, 4, 2), 4).astype(np.float64)
+    g = _normal((1, 3, 2, 4, 3), 5).astype(np.float64)
+    ref = np.zeros((3, 3, 3, 2, 3))
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)))
+    for dw, dh, dd, w, h, d in np.ndindex(3, 3, 3, 3, 2, 4):
+        ref[dw, dh, dd] += np.outer(xp[0, w + dw, h + dh, d + dd], g[0, w, h, d])
+    out = conv3x3_s1p1_dw_plain(torch.from_numpy(x).float(), torch.from_numpy(g).float())
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("x_shape,k_shape", [((1, 2, 2, 2, 3), (3, 3, 3, 4, 2)),
                                              ((2, 2, 2, 3), (3, 3, 3, 3, 2)),
                                              ((1, 2, 2, 2, 3), (3, 3, 1, 3, 2))])
@@ -71,3 +115,53 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     err = (out.float() - ref).abs().max().item()
     assert err <= tol * ref.abs().max().item()
+
+
+# dX and dW classes: Cin 3 (the input convs), Cout 2 (the out conv), Cout
+# above 64 (two Cout blocks), and sizes that leave partial 4x8x8 tiles
+GRAD_SHAPES = [(2, 6, 5, 7, 3, 2), (2, 12, 22, 6, 40, 120), (1, 9, 17, 11, 80, 70),
+               (2, 6, 11, 3, 40, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_gradient_kernels_match_plain_on_card(cuda_device, dtype, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    x = torch.from_numpy(_normal((n, w, h, d, cin), 12)).to(cuda_device, dtype)
+    k = torch.from_numpy(_normal((3, 3, 3, cin, cout), 13)).to(cuda_device, dtype)
+    g = torch.from_numpy(_normal((n, w, h, d, cout), 14)).to(cuda_device, dtype)
+    before = (conv3x3_s1p1_dx.launches, conv3x3_s1p1_dw.launches)
+    dx = conv3x3_s1p1_dx(g, k)
+    dk = conv3x3_s1p1_dw(x, g)
+    dk_again = conv3x3_s1p1_dw(x, g)
+    torch.cuda.synchronize()
+    assert (conv3x3_s1p1_dx.launches, conv3x3_s1p1_dw.launches) == (before[0] + 1,
+                                                                    before[1] + 2)
+    assert dx.dtype == dtype and dk.dtype == dtype and dk.shape == (3, 3, 3, cin, cout)
+    # split-K partial sums reduced in a fixed order, no atomics
+    assert torch.equal(dk, dk_again)
+    # f32: sums of up to 27*120 (dX) and N*W*H*D (dW, 3,366 here) products
+    # in another order; bf16: one rounding of the output to 8 bits
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for out, ref in ((dx, conv3x3_s1p1_dx_plain(g.float(), k.float())),
+                     (dk, conv3x3_s1p1_dw_plain(x.float(), g.float()))):
+        err = (out.float() - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_function_on_card_gives_the_kernels_gradients(cuda_device):
+    x = torch.from_numpy(_normal((2, 8, 9, 5, 6), 15)).to(cuda_device).requires_grad_()
+    k = torch.from_numpy(_normal((3, 3, 3, 6, 4), 16)).to(cuda_device).requires_grad_()
+    g = torch.from_numpy(_normal((2, 8, 9, 5, 4), 17)).to(cuda_device)
+    before = [w.launches for w in WRAPPERS]
+    Conv3x3S1P1.apply(x, k).backward(g)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(WRAPPERS, before)] == [1, 1, 1]
+    assert k.grad.abs().max() > 0
+    ref_dk = conv3x3_s1p1_dw_plain(x.detach(), g)
+    assert (k.grad - ref_dk).abs().max() <= 1e-4 * ref_dk.abs().max()
+    ref_dx = conv3x3_s1p1_dx_plain(g, k.detach())
+    assert (x.grad - ref_dx).abs().max() <= 1e-4 * ref_dx.abs().max()
