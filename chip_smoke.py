@@ -39,8 +39,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    from a torch.Generator on the card. 2 warm-up and 5 timed steps in
    float32, then the same in bfloat16; ms per step, volumes/s, peak memory,
    the losses; the kernels' launches per step by class (25 forward, 23 dX,
-   25 dW); running statistics that moved and conv weights with nonzero
-   gradients. One more float32 step runs under torch.profiler.
+   25 dW) and each kind's kernel, plain, cuDNN and bound time per step;
+   running statistics that moved and conv weights with nonzero gradients.
+   One more step in float32 and one in bfloat16 run under torch.profiler,
+   for the device time by kernel and the dW kernels' share.
 7. card against CPU: one float32 train step at dropout 0, the same weights
    and the first subject, on the card and on the port on the CPU: the loss
    and every parameter's gradient, beside how far a 1e-7 change of the
@@ -491,11 +493,13 @@ def launch_counts():
             (("fwd", conv3x3_s1p1), ("dx", conv3x3_s1p1_dx), ("dw", conv3x3_s1p1_dw))}
 
 
-def profile_train_step(step, state, batch, generator, card):
-    """One float32 train step under torch.profiler: device busy time, idle
-    share and the kernels that take the most device time (the forward and
-    dX share the kernel conv3x3_s1p1_kernel; dW is dw_partial_kernel and
-    dw_reduce_kernel)."""
+def profile_train_step(step, state, batch, generator, name, card):
+    """One train step under torch.profiler: device busy time, idle share and
+    the kernels that take the most device time (the forward and dX share the
+    kernel conv3x3_s1p1_kernel; dW is dw_partial_kernel in float32,
+    dw_partial_mma_kernel in bfloat16, and dw_reduce_kernel). Returns the dW
+    kernels' device time and the device busy time, in ms (None if nothing
+    was traced)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -511,17 +515,19 @@ def profile_train_step(step, state, batch, generator, card):
                     key=lambda e: -e.self_device_time_total)
     if not events:
         print(f"profile train step: no device time traced; busy share not measured [{card}]")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"profile (f32 train step): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    print(f"profile ({name} train step): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
     for e in events[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
+    by_label = {}
     for label, needle in (("conv3x3_s1p1_kernel (forward + dX)", "conv3x3_s1p1_kernel"),
-                          ("dw_partial_kernel + dw_reduce_kernel (dW)", "dw_")):
-        ms = sum(e.self_device_time_total for e in events if needle in e.key) / 1e3
-        print(f"profile train step: {label} {ms:.3f} ms of {busy_ms:.3f} ms device time",
-              flush=True)
+                          ("dw_partial[_mma]_kernel + dw_reduce_kernel (dW)", "dw_")):
+        by_label[needle] = sum(e.self_device_time_total for e in events if needle in e.key) / 1e3
+        print(f"profile {name} train step: {label} {by_label[needle]:.3f} ms of {busy_ms:.3f} ms "
+              f"device time", flush=True)
+    return by_label["dw_"], busy_ms
 
 
 def train_phase(card, seed, rows):
@@ -585,7 +591,12 @@ def train_phase(card, seed, rows):
                and w.grad.abs().max().item() > 0 for w in conv_weights)
     print(f"train: {len(moved)} running statistics moved; all {len(conv_weights)} conv "
           f"weights have finite, nonzero gradients", flush=True)
-    profile_train_step(steps[torch.float32], state, batch, generator, card)
+    shares = {name: profile_train_step(steps[dtype], state, batch, generator, name, card)
+              for dtype, name in DTYPE_NAMES.items()}
+    if all(shares.values()):
+        print("profile train step, dW kernels' share of device time: " + ", ".join(
+            f"{name} {dw:.3f} of {busy:.3f} ms ({dw / busy:.4f})"
+            for name, (dw, busy) in shares.items()) + f" [{card}]", flush=True)
 
     for row in rows:
         if row["_kind"] == "fwd":
@@ -594,6 +605,23 @@ def train_phase(card, seed, rows):
         assert count % TRAIN_STEPS == 0 and count > 0, (row["name"], count)
         row["launches"] = count // TRAIN_STEPS
     return state_dict, batch_cf
+
+
+def step_totals(rows, card):
+    """Each kernel kind's time per train step in each dtype (25 forward, 23
+    dX, 25 dW launches), beside its plain version's, cuDNN's and the bound:
+    sums of launches per step times ms per launch over the classes."""
+    per_forward = {(*spatial, cin, cout): n for spatial, cin, cout, n in CONV_CLASSES}
+    for dtype, name in DTYPE_NAMES.items():
+        for kind in ("fwd", "dx", "dw"):
+            picked = [(row, per_forward[row["_key"][2:]] if kind == "fwd" else row["launches"])
+                      for row in rows if row["_kind"] == kind and row["_key"][0] == str(dtype)]
+            total = {key: sum(row[key] * n for row, n in picked)
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"per train step {kind} {name}: kernel {total['ms']:.4f} ms, plain "
+                  f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound "
+                  f"{total['bound_ms']:.4f} ({sum(n for _, n in picked)} launches) [{card}]",
+                  flush=True)
 
 
 def cpu_train_comparison(card, state_dict, batch_cf):
@@ -665,6 +693,7 @@ def main() -> int:
     grad_rows = grad_kernel_phase(device, half_batch, args.seed, card)
     slice_phase(card, args.seed, rows)
     state_dict, batch_cf = train_phase(card, args.seed, grad_rows)
+    step_totals(rows + grad_rows, card)
     cpu_train_comparison(card, state_dict, batch_cf)
 
     rows += grad_rows

@@ -14,29 +14,50 @@
 //
 // What bounds it on an H100: the same 2*N*W*H*D*27*Cin*Cout operations as
 // the forward against (N*W*H*D*(Cin+Cout) + 27*Cin*Cout) * sizeof(T) bytes,
-// so the arithmetic is the limit (67 TFLOP/s f32 on the CUDA cores). Unlike
-// the forward, the reduction runs over the M = N*W*H*D voxels (811,008 at
-// the dmri_hippo training batch) into a small output (27*Cin*Cout, at most
-// 129,600 values at 120->40): a split-K problem.
+// so the arithmetic is the limit: 67 TFLOP/s in f32 on the CUDA cores, 989
+// TFLOP/s in bf16 on the tensor cores. Unlike the forward, the reduction
+// runs over the M = N*W*H*D voxels (811,008 at the dmri_hippo training
+// batch) into a small output (27*Cin*Cout, at most 129,600 values at
+// 120->40): a split-K problem.
 //
-// What this design does about it: the simple, correct first version, on the
-// CUDA cores in f32 FMAs for both types (no wgmma, no TMA). The voxels are
-// cut into 4x8x8 tiles, as the forward's. Grid.x splits the tiles into
-// `splits` contiguous runs; grid.y takes Cin in chunks of 4 or 8, grid.z Cout
-// in chunks of up to 64, so no block holds all 27*Cin*Cout sums. A block
-// walks its run of tiles: it stages the zero-masked 6x10x10 x halo of its
-// Cin chunk and the g tile of its Cout chunk in shared memory, then each
-// thread adds, for one tap, a 4 (Cin) x 8 (Cout) block of products over the
-// tile's 256 voxels, kept in registers (32 FMAs per three 16-byte
-// shared-memory reads). Each block writes its sums to an f32 workspace row
-// of its split; a second launch adds the rows in split order. No atomics:
-// the result is the same bit for bit from run to run.
+// What this design does about it. Both types cut the voxels into 4x8x8
+// tiles, as the forward does, give each block a contiguous run of tiles (one
+// of `splits` runs), stage the zero-masked 6x10x10 x halo of the block's Cin
+// chunk and the g tile of its Cout chunk in shared memory, keep the sums in
+// registers across the run, and write them to an f32 workspace row of the
+// split; a second launch adds the rows in split order. No atomics: the
+// result is the same bit for bit from run to run.
+//
+// f32 (dw_partial_kernel): on the CUDA cores in f32 FMAs. Grid.x is the
+// split, grid.y Cin in chunks of 4 or 8, grid.z Cout in chunks of up to 64;
+// each thread adds, for one tap, a 4 (Cin) x 8 (Cout) block of products over
+// the tile's 256 voxels (32 FMAs per three 16-byte shared-memory reads).
+//
+// bf16 (dw_partial_mma_kernel): on the tensor cores with warp-level
+// mma.sync m16n8k16 (bf16 x bf16, f32 sums). Per block the work is a GEMM
+// with a long K: (27 taps * Cin chunk) x voxels times voxels x Cout chunk.
+// M rows go in groups of 8 channels of one tap, two groups per m16 tile (the
+// two may be of different taps), so a chunk of 16 channels is 54 groups, 27
+// m16 tiles, none padded; Cout goes on the n8 side, its n8 tiles shared out
+// evenly over chunks of at most five (NT, a template parameter: five tiles
+// for Cout 40, none padded; one padded tile for Cout 2); K steps 16 voxels,
+// two D-runs of 8. Staging keeps bf16 (48-byte x rows, g rows an odd number of
+// 16 bytes, so ldmatrix reads are free of bank conflicts) and goes by
+// cp.async into the other of two buffers while the current tile is
+// multiplied. Fragments come from ldmatrix.x4.trans, each lane giving its
+// own row address, so the tap's shift of the halo is only another address.
+// Grid.x is the Cin chunk, so the blocks that read one g tile run side by
+// side and share it in L2; grid.y is the split, grid.z the Cout chunk. Nine
+// warps take three m16 tiles each across all of the chunk's n8 tiles: 60 f32
+// sums a thread at NT 5, within the 96 registers that two resident blocks
+// per SM leave.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -52,8 +73,18 @@ constexpr int MAX_THREADS = TAPS * (8 / CI_T) * (COUT_BLOCK / CO_T);
 constexpr int TARGET_BLOCKS = 4 * 132;  // four blocks for each of the H100's SMs
 constexpr int REDUCE_THREADS = 256;
 
+// The bf16 tensor-core kernel.
+constexpr int MMA_CIK = 16;          // input channels per block (grid.x): two groups of 8
+constexpr int MMA_XS = 24;           // x halo row stride in elements: 48 bytes
+constexpr int MMA_COUT_BLOCK = 40;   // at most this many output channels per block (grid.z)
+constexpr int MMA_WARPS = 9;
+constexpr int MMA_MT = 3;            // m16 tiles per warp: 9 * 3 = 27 * 16 / 16
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int MMA_TARGET_BLOCKS = 4 * 132;  // two waves of two resident blocks per SM
+constexpr int MMA_BUF = HALO * MMA_XS + TILE * MMA_COUT_BLOCK;  // one tile's staging, bf16
+constexpr size_t MMA_SMEM = 2 * MMA_BUF * sizeof(__nv_bfloat16);  // double-buffered
+
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
@@ -72,6 +103,13 @@ struct Geometry {
   int splits(int Cin, int Cout) const {
     const int per_split = chunks_in(Cin) * chunks_out(Cout);
     return std::max(1, std::min(n_tiles, (TARGET_BLOCKS + per_split - 1) / per_split));
+  }
+  static int mma_chunks_in(int Cin) { return (Cin + MMA_CIK - 1) / MMA_CIK; }
+  static int mma_chunks_out(int Cout) { return (Cout + MMA_COUT_BLOCK - 1) / MMA_COUT_BLOCK; }
+  // At most MMA_TARGET_BLOCKS blocks, so the last wave is not a sliver.
+  int mma_splits(int Cin, int Cout) const {
+    const int per_split = mma_chunks_in(Cin) * mma_chunks_out(Cout);
+    return std::max(1, std::min(n_tiles, MMA_TARGET_BLOCKS / per_split));
   }
 };
 
@@ -179,6 +217,232 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __res
   }
 }
 
+// Four (x4) or two (x2) 8x8 matrices of 16-bit values from shared memory,
+// transposed: lanes 8i..8i+7 give the addresses of matrix i's eight rows of
+// 16 bytes; each lane receives, per matrix, the two values of column
+// lane / 4 in rows 2 * (lane % 4) and + 1.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight bf16 values from src[0..8), zero from index `count` on, one by one:
+// for channel counts that are not a multiple of 8.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int count) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (k < count) w[k >> 1] |= (uint32_t)s[k] << (16 * (k & 1));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// the bytes past `bytes` (all 16 when it is 0) are zero.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most the latest committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_all_but_latest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// grid: (ceil(Cin / MMA_CIK), splits, ceil(Cout / MMA_COUT_BLOCK)); each
+// block takes NT n8 tiles of Cout (the last block's may run past Cout);
+// blockDim.x = MMA_THREADS. work[s][tap][ci][co] receives split s's sums.
+// x_vec / g_vec: Cin / Cout is a multiple of 8 and the tensor 16-byte
+// aligned, so rows of 8 channels are staged by cp.async.
+template <int NT>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+dw_partial_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                      float* __restrict__ work, int W, int H, int D, int Cin, int Cout,
+                      int tiles_w, int tiles_h, int tiles_d, int n_tiles, int splits,
+                      int x_vec, int g_vec) {
+  // Two buffers, each the x halo [HALO][MMA_XS] then the g tile [TILE][gstride].
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
+
+  const int c0 = blockIdx.x * MMA_CIK;
+  const int s = blockIdx.y;
+  const int co0 = blockIdx.z * NT * 8;
+  const int ncin = min(MMA_CIK, Cin - c0);
+  const int ncout = min(NT * 8, Cout - co0);
+  const int ng = (ncin + 7) / 8;          // channel groups of 8 in this chunk: 1 or 2
+  constexpr int gstride = (NT | 1) * 8;   // g row stride, an odd number of 16 bytes
+  const int n_groups = TAPS * ng;         // group q: tap q / ng, channels (q % ng) * 8 + 0..7
+  const int n_m16 = (n_groups + 1) / 2;   // m16 tile j: groups 2j (rows 0-7), 2j + 1 (rows 8-15)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mat = lane >> 3;              // the ldmatrix matrix this lane addresses
+  const int mrow = lane & 7;              // and its row there: voxel d = mrow of a D-run
+
+  // A (16 rows (tap, ci) x 16 voxels): matrices 0..3 are (group 2j, k 0-7),
+  // (2j + 1, k 0-7), (2j, k 8-15), (2j + 1, k 8-15); a lane's row address is
+  // its voxel's halo position shifted by its group's tap, at its group's
+  // channels. Warp w takes m16 tiles w, w + 9, w + 18.
+  int a_off[MMA_MT];
+#pragma unroll
+  for (int mt = 0; mt < MMA_MT; ++mt) {
+    int q = 2 * (warp + MMA_WARPS * mt) + (mat & 1);
+    if (q >= n_groups) q = 0;  // the padded half of the last m16 tile: never stored
+    const int tap = q / ng;
+    a_off[mt] = (((tap / 9) * HH + (tap / 3) % 3) * HD + tap % 3) * MMA_XS + (q % ng) * 8;
+  }
+  const int a_run = mat >> 1;  // D-run 2 * kstep + a_run
+  // B (16 voxels x 8 Cout) for n8 tiles t, t + 1: matrices (t, k 0-7),
+  // (t, k 8-15), (t + 1, k 0-7), (t + 1, k 8-15).
+  const int b_run = mat & 1;
+  const int b_tile = mat >> 1;
+
+  float acc[MMA_MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MMA_MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+
+  // Stage a tile into buffer `buf`: x halo and g tile 8 channels at a time,
+  // zero outside the volume and past Cin and Cout. Whole rows of 8 go by
+  // cp.async (a zero fill where there is no data); ragged channel counts
+  // take the plain loads.
+  auto stage = [&](int tile, int buf) {
+    __nv_bfloat16* xb = smem + buf * MMA_BUF;
+    __nv_bfloat16* gb = xb + HALO * MMA_XS;
+    int r = tile;
+    const int d0 = (r % tiles_d) * TD;
+    r /= tiles_d;
+    const int h0 = (r % tiles_h) * TH;
+    r /= tiles_h;
+    const int w0 = (r % tiles_w) * TW;
+    const int n = r / tiles_w;
+    for (int i = tid; i < HALO * 2; i += MMA_THREADS) {
+      const int c = (i & 1) * 8;
+      const int v = i >> 1;
+      const int gd = d0 + v % HD - 1;
+      const int gh = h0 + (v / HD) % HH - 1;
+      const int gw = w0 + v / (HD * HH) - 1;
+      const bool in = c < ncin && gw >= 0 && gw < W && gh >= 0 && gh < H && gd >= 0 && gd < D;
+      const __nv_bfloat16* src =
+          in ? x + ((((size_t)n * W + gw) * H + gh) * D + gd) * Cin + c0 + c : x;
+      __nv_bfloat16* dst = xb + v * MMA_XS + c;
+      if (x_vec)
+        cp_async16((uint32_t)__cvta_generic_to_shared(dst), src, in ? 16 : 0);
+      else
+        *reinterpret_cast<uint4*>(dst) = in ? load8(src, ncin - c) : make_uint4(0, 0, 0, 0);
+    }
+    for (int i = tid; i < TILE * NT; i += MMA_THREADS) {
+      const int c = (i % NT) * 8;
+      const int v = i / NT;
+      const int od = d0 + v % TD;
+      const int oh = h0 + (v / TD) % TH;
+      const int ow = w0 + v / (TD * TH);
+      const bool in = c < ncout && ow < W && oh < H && od < D;
+      const __nv_bfloat16* src =
+          in ? g + ((((size_t)n * W + ow) * H + oh) * D + od) * Cout + co0 + c : g;
+      __nv_bfloat16* dst = gb + v * gstride + c;
+      if (g_vec)
+        cp_async16((uint32_t)__cvta_generic_to_shared(dst), src, in ? 16 : 0);
+      else
+        *reinterpret_cast<uint4*>(dst) = in ? load8(src, ncout - c) : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  // Tile t + 1 is staged into the other buffer while tile t is multiplied.
+  const int t_begin = (int)((long long)n_tiles * s / splits);
+  const int t_end = (int)((long long)n_tiles * (s + 1) / splits);
+  if (t_begin < t_end) stage(t_begin, 0);
+  cp_async_commit();
+  int buf = 0;
+  for (int tile = t_begin; tile < t_end; ++tile, buf ^= 1) {
+    if (tile + 1 < t_end) stage(tile + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_all_but_latest();
+    __syncthreads();
+    const uint32_t xs_addr = (uint32_t)__cvta_generic_to_shared(smem + buf * MMA_BUF);
+    const uint32_t gs_addr = xs_addr + 2 * HALO * MMA_XS;
+
+    // K steps of 16 voxels: D-runs 2k and 2k + 1, run r at (vw, vh) =
+    // (r / TH, r % TH), voxel (r * TD + d) of the tile.
+#pragma unroll 1
+    for (int k = 0; k < TILE / 16; ++k) {
+      uint32_t b[NT][2];
+      const int gv = (2 * k + b_run) * TD + mrow;
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        if (t + 1 < NT)
+          ldmatrix_x4_trans(gs_addr + 2 * (gv * gstride + (t + b_tile) * 8), b[t][0], b[t][1],
+                            b[t + 1][0], b[t + 1][1]);
+        else
+          ldmatrix_x2_trans(gs_addr + 2 * (gv * gstride + t * 8), b[t][0], b[t][1]);
+      }
+      const int run = 2 * k + a_run;
+      const int xv = ((run / TH) * HH + run % TH) * HD + mrow;
+#pragma unroll
+      for (int mt = 0; mt < MMA_MT; ++mt) {
+        if (warp + MMA_WARPS * mt >= n_m16) continue;
+        uint32_t a[4];
+        ldmatrix_x4_trans(xs_addr + 2 * (a_off[mt] + xv * MMA_XS), a[0], a[1], a[2], a[3]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) mma_bf16_16816(acc[mt][t], a, b[t][0], b[t][1]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Accumulator e of n8 tile t: row (e / 2) * 8 + lane / 4 of the m16 tile,
+  // column t * 8 + 2 * (lane % 4) + e % 2.
+  float* row = work + (size_t)s * TAPS * Cin * Cout;
+#pragma unroll
+  for (int mt = 0; mt < MMA_MT; ++mt) {
+    const int j = warp + MMA_WARPS * mt;
+    if (j >= n_m16) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 2 * j + h;
+      const int ci = (q % ng) * 8 + (lane >> 2);
+      if (q >= n_groups || ci >= ncin) continue;
+      float* out = row + ((size_t)(q / ng) * Cin + c0 + ci) * Cout + co0;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = t * 8 + 2 * (lane & 3) + e;
+          if (co < ncout) out[co] = acc[mt][t][2 * h + e];
+        }
+    }
+  }
+}
+
 // out[k] = sum over s in order of work[s][k], k < 27 * Cin * Cout.
 template <typename T>
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -207,18 +471,62 @@ cudaError_t launch_partial(const T* x, const T* g, float* work, int N, int W, in
   return cudaGetLastError();
 }
 
+// f32: the CUDA-core kernel.
+cudaError_t launch_partials(const float* x, const float* g, float* work, int N, int W, int H,
+                            int D, int Cin, int Cout, int splits, const Geometry& geo,
+                            cudaStream_t st) {
+  return geo.cik == 4
+             ? launch_partial<float, 4>(x, g, work, N, W, H, D, Cin, Cout, splits, geo, st)
+             : launch_partial<float, 8>(x, g, work, N, W, H, D, Cin, Cout, splits, geo, st);
+}
+
+template <int NT>
+cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* g, float* work, int W, int H,
+                       int D, int Cin, int Cout, int splits, const Geometry& geo,
+                       cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dw_partial_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
+  if (err != cudaSuccess) return err;
+  const int x_vec = Cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int g_vec = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid(Geometry::mma_chunks_in(Cin), splits, Geometry::mma_chunks_out(Cout));
+  dw_partial_mma_kernel<NT><<<grid, MMA_THREADS, MMA_SMEM, st>>>(
+      x, g, work, W, H, D, Cin, Cout, geo.tiles_w, geo.tiles_h, geo.tiles_d, geo.n_tiles,
+      splits, x_vec, g_vec);
+  return cudaGetLastError();
+}
+
+// bf16: the tensor-core kernel, with Cout's n8 tiles shared out evenly over
+// the Cout chunks (5 for Cout 40, 1 for Cout 2).
+cudaError_t launch_partials(const __nv_bfloat16* x, const __nv_bfloat16* g, float* work, int N,
+                            int W, int H, int D, int Cin, int Cout, int splits,
+                            const Geometry& geo, cudaStream_t st) {
+  const int chunks = Geometry::mma_chunks_out(Cout);
+  switch (((Cout + 7) / 8 + chunks - 1) / chunks) {
+    case 1: return launch_mma<1>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
+    case 2: return launch_mma<2>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
+    case 3: return launch_mma<3>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
+    case 4: return launch_mma<4>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
+    default: return launch_mma<5>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
+  }
+}
+
+template <typename T> int splits_for(const Geometry& geo, int Cin, int Cout);
+template <> int splits_for<float>(const Geometry& geo, int Cin, int Cout) {
+  return geo.splits(Cin, Cout);
+}
+template <> int splits_for<__nv_bfloat16>(const Geometry& geo, int Cin, int Cout) {
+  return geo.mma_splits(Cin, Cout);
+}
+
 template <typename T>
 int launch(const void* x, const void* g, void* work, void* out, int N, int W, int H, int D,
            int Cin, int Cout, int splits, void* stream) {
   const Geometry geo(N, W, H, D, Cin, Cout);
-  if (splits != geo.splits(Cin, Cout)) return (int)cudaErrorInvalidValue;
+  if (splits != splits_for<T>(geo, Cin, Cout)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      geo.cik == 4
-          ? launch_partial<T, 4>((const T*)x, (const T*)g, (float*)work, N, W, H, D, Cin,
-                                 Cout, splits, geo, st)
-          : launch_partial<T, 8>((const T*)x, (const T*)g, (float*)work, N, W, H, D, Cin,
-                                 Cout, splits, geo, st);
+  cudaError_t err = launch_partials((const T*)x, (const T*)g, (float*)work, N, W, H, D, Cin,
+                                    Cout, splits, geo, st);
   if (err != cudaSuccess) return (int)err;
   const int K = TAPS * Cin * Cout;
   dw_reduce_kernel<T><<<(K + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, st>>>(
@@ -229,9 +537,13 @@ int launch(const void* x, const void* g, void* work, void* out, int N, int W, in
 }  // namespace
 
 // The number of splits (workspace rows of 27 * Cin * Cout floats) that the
-// launch for this shape takes.
-extern "C" int conv3x3_s1p1_dw_splits(int N, int W, int H, int D, int Cin, int Cout) {
-  return Geometry(N, W, H, D, Cin, Cout).splits(Cin, Cout);
+// launch for this shape and type takes.
+extern "C" int conv3x3_s1p1_dw_splits_f32(int N, int W, int H, int D, int Cin, int Cout) {
+  return splits_for<float>(Geometry(N, W, H, D, Cin, Cout), Cin, Cout);
+}
+
+extern "C" int conv3x3_s1p1_dw_splits_bf16(int N, int W, int H, int D, int Cin, int Cout) {
+  return splits_for<__nv_bfloat16>(Geometry(N, W, H, D, Cin, Cout), Cin, Cout);
 }
 
 extern "C" int conv3x3_s1p1_dw_f32(const void* x, const void* g, void* work, void* out, int N,

@@ -10,7 +10,8 @@ its custom VJP (``_fwd``/``_bwd``):
   with the kernel flipped along (W, H, D) and Cin/Cout swapped
   (``pallas_conv.py:118-120``).
 - ``conv3x3_s1p1_dw``: the weight gradient, the CUDA kernel
-  ``csrc/conv3x3_s1p1_dw.cu`` (``pallas_conv.py:128-142``).
+  ``csrc/conv3x3_s1p1_dw.cu`` (``pallas_conv.py:128-142``): f32 on the
+  CUDA cores, bf16 on the tensor cores (``mma.sync``).
 - ``Conv3x3S1P1``: the ``torch.autograd.Function`` that ties them together.
 
 Each wrapper launches its kernel on a CUDA tensor or raises; on a CPU tensor
@@ -132,7 +133,9 @@ def _dw_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     N, W, H, D, cin = x.shape
     cout = g.shape[-1]
     shape_args = (N, W, H, D, cin, cout)
-    splits = _entry(DW_SOURCE, "conv3x3_s1p1_dw_splits", [ctypes.c_int] * 6)(*shape_args)
+    # the bf16 tensor-core kernel cuts the work otherwise than the f32 one
+    splits = _entry(DW_SOURCE, f"conv3x3_s1p1_dw_splits_{_SUFFIX[x.dtype]}",
+                    [ctypes.c_int] * 6)(*shape_args)
     # per-split partial sums in float32, reduced in a fixed order by a
     # second launch
     work = torch.empty((splits, 27 * cin * cout), dtype=torch.float32, device=x.device)

@@ -118,9 +118,11 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, shape):
 
 
 # dX and dW classes: Cin 3 (the input convs), Cout 2 (the out conv), Cout
-# above 64 (two Cout blocks), and sizes that leave partial 4x8x8 tiles
+# above 64 (two Cout blocks), and sizes that leave partial 4x8x8 tiles; Cin
+# 120 puts eight 16-channel chunks and every pairing of taps in an m16 tile
+# of the bf16 dW kernel in play, Cin 8 -> Cout 8 one channel group each way
 GRAD_SHAPES = [(2, 6, 5, 7, 3, 2), (2, 12, 22, 6, 40, 120), (1, 9, 17, 11, 80, 70),
-               (2, 6, 11, 3, 40, 40)]
+               (2, 6, 11, 3, 40, 40), (1, 7, 13, 10, 120, 40), (2, 5, 9, 6, 8, 8)]
 
 
 @pytest.mark.cuda
@@ -149,6 +151,26 @@ def test_gradient_kernels_match_plain_on_card(cuda_device, dtype, shape):
                      (dk, conv3x3_s1p1_dw_plain(x.float(), g.float()))):
         err = (out.float() - ref).abs().max().item()
         assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (2, 9, 17, 11, 40, 40),
+                                   (1, 7, 13, 10, 120, 40), (2, 5, 9, 6, 8, 8),
+                                   (1, 9, 17, 11, 80, 70)])
+def test_dw_bf16_exact_on_small_integers(cuda_device, shape):
+    """x and g small integers (|v| <= 4, exact in bf16): every product and
+    every f32 partial sum (at most 3,366 voxels * 16 < 2**24) is exact, so the
+    tensor-core kernel must equal the plain version bit for bit, whatever the
+    order of its sums. An indexing slip shows here as a wrong integer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.integers(-4, 5, (n, w, h, d, cin)).astype(np.float32))
+    g = torch.from_numpy(rng.integers(-4, 5, (n, w, h, d, cout)).astype(np.float32))
+    x, g = x.to(cuda_device, torch.bfloat16), g.to(cuda_device, torch.bfloat16)
+    dk = conv3x3_s1p1_dw(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, conv3x3_s1p1_dw_plain(x, g))
 
 
 @pytest.mark.cuda

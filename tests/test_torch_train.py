@@ -59,6 +59,39 @@ def test_conv_gradients_match_pallas_vjp(shape):
     np.testing.assert_allclose(kt.grad.numpy(), dk_ref, atol=1e-4, rtol=1e-5)
 
 
+# (N, W, H, D, Cin, Cout): the input convs' Cin 3, Cin 16 -> Cout 24 (two
+# and three channel groups of 8), the out conv's Cout 2
+BF16_DW_SHAPES = [(2, 4, 5, 3, 3, 8), (1, 4, 6, 5, 16, 24), (2, 5, 3, 4, 8, 2)]
+
+
+@pytest.mark.parametrize("shape", BF16_DW_SHAPES)
+def test_conv_weight_gradient_bf16_matches_pallas_vjp(shape):
+    """The port's dW on bf16 CPU tensors (the plain version that the bf16
+    tensor-core kernel is held to on the card) against the dW of jax.vjp of
+    the Pallas kernel (interpret mode) on the same bf16 inputs: bf16 x bf16
+    products summed in f32, rounded once to bf16."""
+    n, w, h, d, cin, cout = shape
+    x, k = _normal((n, w, h, d, cin), 20), _normal((3, 3, 3, cin, cout), 21)
+    g = _normal((n, w, h, d, cout), 22)
+    xb, kb, gb = (jnp.asarray(a, jnp.bfloat16) for a in (x, k, g))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(pallas_conv3d_3x3_s1p1, xb, kb)
+        dk_ref = np.asarray(vjp(gb)[1].astype(jnp.float32))
+        # the same bf16 values in f32: JAX's f32 sums before the rounding
+        _, vjp32 = jax.vjp(pallas_conv3d_3x3_s1p1, xb.astype(jnp.float32),
+                           kb.astype(jnp.float32))
+        dk_sum = np.asarray(vjp32(gb.astype(jnp.float32))[1])
+    dk = tconv3x3.conv3x3_s1p1_dw(torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16())
+    assert dk.dtype == torch.bfloat16 and dk.shape == (3, 3, 3, cin, cout)
+    dk = dk.float().numpy()
+    # one rounding of the f32 sum to bf16 (unit roundoff 2**-8), plus f32
+    # sums of at most 120 products of N(0,1) values in another order (atol)
+    np.testing.assert_allclose(dk, dk_sum, rtol=2 ** -8, atol=1e-4)
+    # against JAX's bf16 result: each side rounds its own f32 sum once, so
+    # the two may land on neighbouring bf16 values, 2 * 2**-8 apart
+    np.testing.assert_allclose(dk, dk_ref, rtol=2 ** -7, atol=1e-4)
+
+
 def test_conv_input_gradient_only_where_needed(monkeypatch):
     """The convs that read the network's input run no dX."""
     calls = []
