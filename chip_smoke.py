@@ -12,25 +12,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (the conv kernel, which also runs the input gradient dX, and the weight
    gradient dW), in parallel, and prints their -Xptxas -v logs.
 3. kernels: the 3x3x3 conv kernel at each (spatial size, Cin, Cout) class of
-   NestedResUNet-40 at the serving batch (8 half-volumes), in float32 and
-   bfloat16, held against its plain PyTorch version on the same inputs and
-   timed with CUDA events beside the plain version, F.conv3d (cuDNN) and the
-   card's bound.
+   NestedResUNet-40 at the serving batch (8 half-volumes), in float32 (CUDA
+   cores) and bfloat16 (tensor cores), held against its plain PyTorch
+   version on the same inputs (bf16 also bit for bit on small-integer
+   inputs) and timed with CUDA events beside the plain version, F.conv3d
+   (cuDNN) and the card's bound.
 4. gradient kernels: dX at every input-gradient class of the train step (the
    forward classes with Cin and Cout swapped, except the convs that read the
    network's input) and dW at every forward class, at the training batch
    (the same 8 half-volumes), in float32 and bfloat16, held against their
-   plain versions and timed beside them, cuDNN's gradients
-   (torch.nn.grad.conv3d_input / conv3d_weight) and the bound.
+   plain versions (bf16 dX also bit for bit on small-integer inputs) and
+   timed beside them, cuDNN's gradients (torch.nn.grad.conv3d_input /
+   conv3d_weight) and the bound.
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
-   flax layout from --seed and loaded through the weight bridge. Three
-   float32 requests of 4 subjects of 3x96x88x24, then one bfloat16 request.
+   flax layout from --seed and loaded through the weight bridge. Requests
+   of 4 subjects of 3x96x88x24: one cold and 8 timed float32 requests, then
+   one untimed and 8 timed bfloat16 requests; the medians of the timed ones.
    Checks the kernel's launch counts, the one-hot answers and their affines,
    the first subject against the port run on the CPU, and a NIfTI round trip.
-   One more float32 request runs under torch.profiler for the device time by
-   kernel and the device's idle share.
+   One more float32 and one more bfloat16 request run under torch.profiler,
+   each after one more as its warm-up, for the device time by kernel and the
+   device's idle share.
 6. train: the dmri_hippo train step, as the trainer calls it:
    make_train_step(sagittal_split=True) with HybridLogisticDiceLoss and
    Adam(lr=2e-4) on SegModel(NestedResUNet(3 -> 2, filters=40,
@@ -41,8 +45,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the losses; the kernels' launches per step by class (25 forward, 23 dX,
    25 dW) and each kind's kernel, plain, cuDNN and bound time per step;
    running statistics that moved and conv weights with nonzero gradients.
-   One more step in float32 and one in bfloat16 run under torch.profiler,
-   for the device time by kernel and the dW kernels' share.
+   Two more steps in float32 and two in bfloat16 run under torch.profiler,
+   the first of each as its warm-up, for the device time by kernel and the
+   shares of forward + dX and of dW.
 7. card against CPU: one float32 train step at dropout 0, the same weights
    and the first subject, on the card and on the port on the CPU: the loss
    and every parameter's gradient, beside how far a 1e-7 change of the
@@ -96,6 +101,9 @@ CONV_CLASSES = [
 ]
 CONVS_PER_FORWARD = 25
 SUBJECTS_PER_REQUEST = 4
+# Timed requests: float32 after one cold request, bfloat16 after one untimed
+# request; host time varies by several ms from request to request.
+F32_REQUESTS, BF16_REQUESTS = 8, 8
 CROP = (96, 88, 24)
 IN_CHANNELS, OUT_CHANNELS, FILTERS = 3, 2, 40
 # The input gradient runs for every conv but the two that read the network's
@@ -118,6 +126,10 @@ DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # max|ref|: float32 sums in another order; bfloat16 adds one rounding of the
 # output to 8 mantissa bits.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Integers in [-INT_MAX, INT_MAX] are exact in bf16, and so is every f32
+# partial sum of a conv of them (at most 27 * 120 * INT_MAX**2 < 2**24): the
+# bf16 kernels must then equal their plain versions bit for bit.
+INT_MAX = 4
 # The card's float32 answer against the port on the CPU: rounding only.
 CPU_PROB_TOL = 1e-4
 CPU_TIE = 1e-3
@@ -167,6 +179,22 @@ def bound_ms(n, spatial, cin, cout, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def small_integers(gen, device, *shape):
+    return torch.randint(-INT_MAX, INT_MAX + 1, shape, generator=gen,
+                         device=device).to(torch.bfloat16)
+
+
+def check_exact(name, kernel, plain, *inputs):
+    """A bf16 kernel against its plain version on small-integer inputs: bit
+    equality."""
+    out, ref = kernel(*inputs), plain(*inputs)
+    torch.cuda.synchronize()
+    if not (out.dtype == torch.bfloat16 and torch.equal(out, ref)):
+        raise AssertionError(f"{name}: differs from the plain version on integer inputs "
+                             f"(max abs diff {(out.float() - ref.float()).abs().max().item()})")
+    print(f"kernel {name}: bit-exact against the plain version on integer inputs", flush=True)
+
+
 def kernel_phase(device, batch: int, seed: int, card: str):
     """Each conv class in f32 and bf16: check against the plain version and
     time kernel, plain version and F.conv3d."""
@@ -187,6 +215,10 @@ def kernel_phase(device, batch: int, seed: int, card: str):
                    f"{cin}->{cout}"
             if not (out.shape == ref.shape and err <= KERNEL_TOL[dtype] * scale):
                 raise AssertionError(f"{name}: max abs err {err} > {KERNEL_TOL[dtype]} * {scale}")
+            if dtype == torch.bfloat16:
+                check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain,
+                            small_integers(gen, device, batch, *spatial, cin),
+                            small_integers(gen, device, 3, 3, 3, cin, cout))
             x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
             w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
             b_ms, b_by = bound_ms(batch, spatial, cin, cout, dtype)
@@ -257,6 +289,10 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
                                          f"{KERNEL_TOL[dtype]} * {scale}")
                 if kind == "dw" and not torch.equal(out, kernel()):
                     raise AssertionError(f"{name}: two runs differ")
+                if kind == "dx" and dtype == torch.bfloat16:
+                    check_exact(name, conv3x3_s1p1_dx, conv3x3_s1p1_dx_plain,
+                                small_integers(gen, device, batch, *spatial, cout),
+                                small_integers(gen, device, 3, 3, 3, cin, cout))
                 source = conv3x3.SOURCE if kind == "dx" else conv3x3.DW_SOURCE
                 rows.append({
                     "name": name,
@@ -359,37 +395,55 @@ def run_requests(model, predictor, subjects, requests):
     return times, batches, conv3x3_s1p1.launches, Counter(conv3x3_s1p1.launches_by_shape)
 
 
-def profile_request(model, predictor, subjects, card):
-    """One more request under torch.profiler: device time by kernel, and the
-    share of the request's wall time in which the device is busy (one
-    stream, so kernel times do not overlap). The profiler's own overhead
-    lengthens this request's wall time."""
+def profiled(run):
+    """Device-side events of ``run()`` under torch.profiler, longest first,
+    and its wall time in ms (host clock, ending in a synchronize). ``run``
+    goes twice, the first time as the profiler's warm-up: only the second
+    is recorded, so that no launch falls into the tracer's start. Only
+    kernels and copies count: an operator's own entry repeats the device
+    time of the kernels it launched, and a user annotation (the profiler's
+    step, the optimizer's step) spans them on the device's timeline."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
+    averages = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: averages.append(p.key_averages()),
                  acc_events=True) as prof:
-        t0 = time.perf_counter()
-        predictor.predict(model, subjects)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an operator's own entry repeats the device
-    # time of the kernels it launched
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    events = sorted((e for e in (averages[0] if averages else [])
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                     and not e.is_user_annotation),
                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return events, wall_ms
+
+
+def profile_request(model, predictor, subjects, name, card):
+    """One more request under torch.profiler (after one more as its
+    warm-up): device time by kernel, and the share of the request's wall
+    time in which the device is busy (one stream, so kernel times do not
+    overlap). The profiler's own overhead lengthens this request's wall
+    time."""
+    events, wall_ms = profiled(lambda: predictor.predict(model, subjects))
     if not events:
         print(f"profile: no device time traced; busy share not measured [{card}]")
         return
-    print(f"profile (f32 request): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile ({name} request): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
     for e in events[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
-    conv_ms = sum(e.self_device_time_total for e in events if "conv3x3_s1p1" in e.key) / 1e3
-    print(f"profile: conv3x3_s1p1 kernel {conv_ms:.3f} ms of {busy_ms:.3f} ms device time",
-          flush=True)
+    picked = [e for e in events if "conv3x3_s1p1" in e.key]
+    conv_ms = sum(e.self_device_time_total for e in picked) / 1e3
+    print(f"profile {name} request: conv3x3_s1p1 kernels {conv_ms:.3f} ms in "
+          f"{sum(e.count for e in picked)} launches, of {busy_ms:.3f} ms device time", flush=True)
 
 
 def slice_phase(card, seed, rows):
@@ -404,17 +458,22 @@ def slice_phase(card, seed, rows):
     predictor = StandardPredict(sagittal_split=True, image_names=["X"], device_argmax=True)
     half_batch = 2 * SUBJECTS_PER_REQUEST
 
-    subjects = make_subjects(volumes)
-    times, batches, launches, by_shape = run_requests(model, predictor, subjects, 3)
+    def cycled(requests):
+        return make_subjects([volumes[i % len(volumes)]
+                              for i in range(requests * SUBJECTS_PER_REQUEST)])
+
+    subjects = cycled(1 + F32_REQUESTS)
+    times, batches, launches, by_shape = run_requests(model, predictor, subjects,
+                                                      1 + F32_REQUESTS)
     peak = torch.cuda.max_memory_allocated()
-    assert launches == 3 * CONVS_PER_FORWARD, launches
-    assert by_shape == expected_launches(torch.float32, 3, half_batch), by_shape
+    assert launches == (1 + F32_REQUESTS) * CONVS_PER_FORWARD, launches
+    assert by_shape == expected_launches(torch.float32, 1 + F32_REQUESTS, half_batch), by_shape
     for t in times:
         print(f"slice f32 request: {t:.3f} ms, {SUBJECTS_PER_REQUEST / t * 1e3:.3f} volumes/s "
               f"[{card}]")
-    med = statistics.median(times)
-    print(f"slice f32: median {med:.3f} ms per request, "
-          f"{SUBJECTS_PER_REQUEST / med * 1e3:.3f} volumes/s, "
+    med = statistics.median(times[1:])
+    print(f"slice f32: median {med:.3f} ms per request over {F32_REQUESTS} after the cold "
+          f"one, {SUBJECTS_PER_REQUEST / med * 1e3:.3f} volumes/s, "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
 
     # The first subject of the first request against the port on the CPU.
@@ -438,26 +497,31 @@ def slice_phase(card, seed, rows):
           f"foreground share {labels_cpu.float().mean().item():.3f}", flush=True)
     assert diff <= CPU_PROB_TOL and bad == 0
 
-    profile_request(model, predictor, make_subjects(volumes[:SUBJECTS_PER_REQUEST]), card)
+    profile_request(model, predictor, make_subjects(volumes[:SUBJECTS_PER_REQUEST]), "f32", card)
 
     model.compute_dtype = "bfloat16"
     # one untimed, uncounted bf16 request first: the one-time costs of the
     # bf16 path (loading its PyTorch kernels, growing the allocator) stay out
-    # of the timed one, as the median keeps them out of the f32 numbers
+    # of the timed ones, as the cold f32 request stays out of the f32 median
     predictor.predict(model, make_subjects(volumes[-SUBJECTS_PER_REQUEST:]))
-    bf16_subjects = make_subjects(volumes[:SUBJECTS_PER_REQUEST])
+    bf16_subjects = cycled(BF16_REQUESTS)
     times_bf, batches_bf, launches_bf, by_shape_bf = run_requests(
-        model, predictor, bf16_subjects, 1)
+        model, predictor, bf16_subjects, BF16_REQUESTS)
     peak_bf = torch.cuda.max_memory_allocated()
-    assert launches_bf == CONVS_PER_FORWARD, launches_bf
-    assert by_shape_bf == expected_launches(torch.bfloat16, 1, half_batch), by_shape_bf
+    assert launches_bf == BF16_REQUESTS * CONVS_PER_FORWARD, launches_bf
+    assert by_shape_bf == expected_launches(torch.bfloat16, BF16_REQUESTS, half_batch), \
+        by_shape_bf
     label_agree = np.mean([(np.argmax(a["y_pred"].data, 0) == np.argmax(b["y_pred"].data, 0)
                             ).mean() for a, b in zip(bf16_subjects, subjects)])
     bf_diff = (batches_bf[0]["y_pred"] - batches[0]["y_pred"]).abs().max().item()
-    print(f"slice bf16 request: {times_bf[0]:.3f} ms, "
-          f"{SUBJECTS_PER_REQUEST / times_bf[0] * 1e3:.3f} volumes/s, max_memory_allocated "
+    med_bf = statistics.median(times_bf)
+    print("slice bf16 requests: " + ", ".join(f"{t:.3f}" for t in times_bf) + " ms", flush=True)
+    print(f"slice bf16 request: median {med_bf:.3f} ms over {BF16_REQUESTS}, "
+          f"{SUBJECTS_PER_REQUEST / med_bf * 1e3:.3f} volumes/s, max_memory_allocated "
           f"{peak_bf} bytes; against f32: max abs prob diff {bf_diff:.3g}, voxel labels "
           f"agree {label_agree:.5f} [{card}]", flush=True)
+    profile_request(model, predictor, make_subjects(volumes[:SUBJECTS_PER_REQUEST]), "bf16",
+                    card)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "y_pred.nii.gz")
@@ -494,25 +558,14 @@ def launch_counts():
 
 
 def profile_train_step(step, state, batch, generator, name, card):
-    """One train step under torch.profiler: device busy time, idle share and
-    the kernels that take the most device time (the forward and dX share the
-    kernel conv3x3_s1p1_kernel; dW is dw_partial_kernel in float32,
-    dw_partial_mma_kernel in bfloat16, and dw_reduce_kernel). Returns the dW
-    kernels' device time and the device busy time, in ms (None if nothing
-    was traced)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, generator)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                    key=lambda e: -e.self_device_time_total)
+    """One train step under torch.profiler (after one more as its warm-up):
+    device busy time, idle share and the kernels that take the most device
+    time (the forward and dX share conv3x3_s1p1_kernel in float32 and
+    conv3x3_s1p1_mma_kernel in bfloat16; dW is dw_partial_kernel in float32,
+    dw_partial_mma_kernel in bfloat16, and dw_reduce_kernel). Returns the
+    forward + dX kernels' device time, the dW kernels' and the device busy
+    time, in ms (None if nothing was traced)."""
+    events, wall_ms = profiled(lambda: step(state, batch, generator))
     if not events:
         print(f"profile train step: no device time traced; busy share not measured [{card}]")
         return None
@@ -522,12 +575,14 @@ def profile_train_step(step, state, batch, generator, name, card):
     for e in events[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
     by_label = {}
-    for label, needle in (("conv3x3_s1p1_kernel (forward + dX)", "conv3x3_s1p1_kernel"),
+    for label, needle in (("conv3x3_s1p1[_mma]_kernel (forward + dX)", "conv3x3_s1p1_"),
                           ("dw_partial[_mma]_kernel + dw_reduce_kernel (dW)", "dw_")):
-        by_label[needle] = sum(e.self_device_time_total for e in events if needle in e.key) / 1e3
-        print(f"profile {name} train step: {label} {by_label[needle]:.3f} ms of {busy_ms:.3f} ms "
-              f"device time", flush=True)
-    return by_label["dw_"], busy_ms
+        picked = [e for e in events if needle in e.key]
+        by_label[needle] = sum(e.self_device_time_total for e in picked) / 1e3
+        print(f"profile {name} train step: {label} {by_label[needle]:.3f} ms in "
+              f"{sum(e.count for e in picked)} launches, of {busy_ms:.3f} ms device time",
+              flush=True)
+    return by_label["conv3x3_s1p1_"], by_label["dw_"], busy_ms
 
 
 def train_phase(card, seed, rows):
@@ -594,9 +649,10 @@ def train_phase(card, seed, rows):
     shares = {name: profile_train_step(steps[dtype], state, batch, generator, name, card)
               for dtype, name in DTYPE_NAMES.items()}
     if all(shares.values()):
-        print("profile train step, dW kernels' share of device time: " + ", ".join(
-            f"{name} {dw:.3f} of {busy:.3f} ms ({dw / busy:.4f})"
-            for name, (dw, busy) in shares.items()) + f" [{card}]", flush=True)
+        print("profile train step, kernels' share of device time: " + ", ".join(
+            f"{name} forward + dX {conv:.3f} of {busy:.3f} ms ({conv / busy:.4f}), "
+            f"dW {dw:.3f} ({dw / busy:.4f})"
+            for name, (conv, dw, busy) in shares.items()) + f" [{card}]", flush=True)
 
     for row in rows:
         if row["_kind"] == "fwd":

@@ -99,7 +99,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(x_shape, k_shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (2, 12, 22, 6, 120, 40),
-                                   (1, 9, 17, 11, 80, 70)])
+                                   (1, 9, 17, 11, 80, 70), (1, 7, 13, 10, 40, 120)])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     n, w, h, d, cin, cout = shape
@@ -171,6 +171,31 @@ def test_dw_bf16_exact_on_small_integers(cuda_device, shape):
     dk = conv3x3_s1p1_dw(x, g)
     torch.cuda.synchronize()
     assert torch.equal(dk, conv3x3_s1p1_dw_plain(x, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (1, 9, 17, 11, 2, 40),
+                                   (1, 9, 17, 11, 40, 80), (1, 7, 13, 10, 40, 120),
+                                   (1, 7, 13, 10, 120, 40), (2, 5, 9, 6, 8, 8)])
+def test_fwd_dx_bf16_exact_on_small_integers(cuda_device, shape):
+    """x, k and g small integers (|v| <= 4, exact in bf16): every product and
+    every f32 partial sum (at most 27 * 120 * 16 < 2**24) is exact, so the
+    tensor-core kernel must equal the plain version bit for bit, forward
+    (Cin -> Cout) and dX (Cout -> Cin), whatever the order of its sums; both
+    round the same f32 sum to bf16 once. An indexing slip shows here as a
+    wrong integer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    rng = np.random.default_rng(19)
+    x, k, g = (torch.from_numpy(rng.integers(-4, 5, s).astype(np.float32)).to(cuda_device,
+                                                                                torch.bfloat16)
+               for s in ((n, w, h, d, cin), (3, 3, 3, cin, cout), (n, w, h, d, cout)))
+    before = (conv3x3_s1p1.launches, conv3x3_s1p1_dx.launches)
+    out, dx = conv3x3_s1p1(x, k), conv3x3_s1p1_dx(g, k)
+    torch.cuda.synchronize()
+    assert (conv3x3_s1p1.launches, conv3x3_s1p1_dx.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, conv3x3_s1p1_plain(x, k))
+    assert torch.equal(dx, conv3x3_s1p1_dx_plain(g, k))
 
 
 @pytest.mark.cuda

@@ -61,10 +61,10 @@ def test_conv_gradients_match_pallas_vjp(shape):
 
 # (N, W, H, D, Cin, Cout): the input convs' Cin 3, Cin 16 -> Cout 24 (two
 # and three channel groups of 8), the out conv's Cout 2
-BF16_DW_SHAPES = [(2, 4, 5, 3, 3, 8), (1, 4, 6, 5, 16, 24), (2, 5, 3, 4, 8, 2)]
+BF16_SHAPES = [(2, 4, 5, 3, 3, 8), (1, 4, 6, 5, 16, 24), (2, 5, 3, 4, 8, 2)]
 
 
-@pytest.mark.parametrize("shape", BF16_DW_SHAPES)
+@pytest.mark.parametrize("shape", BF16_SHAPES)
 def test_conv_weight_gradient_bf16_matches_pallas_vjp(shape):
     """The port's dW on bf16 CPU tensors (the plain version that the bf16
     tensor-core kernel is held to on the card) against the dW of jax.vjp of
@@ -90,6 +90,39 @@ def test_conv_weight_gradient_bf16_matches_pallas_vjp(shape):
     # against JAX's bf16 result: each side rounds its own f32 sum once, so
     # the two may land on neighbouring bf16 values, 2 * 2**-8 apart
     np.testing.assert_allclose(dk, dk_ref, rtol=2 ** -7, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_conv_forward_and_input_gradient_bf16_match_pallas(shape):
+    """The port's forward and dX on bf16 CPU tensors (the plain versions that
+    the bf16 tensor-core kernel is held to on the card) against
+    _pallas_conv3x3_s1p1 and the dX of its custom VJP (interpret mode) on the
+    same bf16 inputs: bf16 x bf16 products summed in f32, rounded once to
+    bf16. dX runs the conv Cout -> Cin."""
+    n, w, h, d, cin, cout = shape
+    x, k = _normal((n, w, h, d, cin), 23), _normal((3, 3, 3, cin, cout), 24)
+    g = _normal((n, w, h, d, cout), 25)
+    xb, kb, gb = (jnp.asarray(a, jnp.bfloat16) for a in (x, k, g))
+    with pltpu.force_tpu_interpret_mode():
+        out_ref, vjp = jax.vjp(pallas_conv3d_3x3_s1p1, xb, kb)
+        dx_ref = vjp(gb)[0]
+        # the same bf16 values in f32: JAX's f32 sums before the rounding
+        out_sum, vjp32 = jax.vjp(pallas_conv3d_3x3_s1p1, xb.astype(jnp.float32),
+                                 kb.astype(jnp.float32))
+        dx_sum = vjp32(gb.astype(jnp.float32))[0]
+    xt, kt, gt = (torch.from_numpy(a).bfloat16() for a in (x, k, g))
+    out, dx = tconv3x3.conv3x3_s1p1(xt, kt), tconv3x3.conv3x3_s1p1_dx(gt, kt)
+    assert out.dtype == dx.dtype == torch.bfloat16
+    assert out.shape == (n, w, h, d, cout) and dx.shape == (n, w, h, d, cin)
+    for got, ref_sum, ref in ((out, out_sum, out_ref), (dx, dx_sum, dx_ref)):
+        got = got.float().numpy()
+        # one rounding of the f32 sum to bf16 (unit roundoff 2**-8), plus f32
+        # sums of at most 27 * 24 products of N(0,1) values in another order
+        np.testing.assert_allclose(got, np.asarray(ref_sum), rtol=2 ** -8, atol=1e-4)
+        # against JAX's bf16 result: each side rounds its own f32 sum once, so
+        # the two may land on neighbouring bf16 values, 2 * 2**-8 apart
+        np.testing.assert_allclose(got, np.asarray(ref.astype(jnp.float32)), rtol=2 ** -7,
+                                   atol=1e-4)
 
 
 def test_conv_input_gradient_only_where_needed(monkeypatch):
