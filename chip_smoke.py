@@ -12,18 +12,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (the conv kernel, which also runs the input gradient dX, and the weight
    gradient dW), in parallel, and prints their -Xptxas -v logs.
 3. kernels: the 3x3x3 conv kernel at each (spatial size, Cin, Cout) class of
-   NestedResUNet-40 at the serving batch (8 half-volumes), in float32 (CUDA
-   cores) and bfloat16 (tensor cores), held against its plain PyTorch
-   version on the same inputs (bf16 also bit for bit on small-integer
+   NestedResUNet-40 at the serving batch (8 half-volumes), in float32 (3xTF32
+   on the tensor cores) and bfloat16 (tensor cores), held against its plain
+   PyTorch version on the same inputs (also bit for bit on small-integer
    inputs) and timed with CUDA events beside the plain version, F.conv3d
-   (cuDNN) and the card's bound.
+   (cuDNN) and the card's bound (float32: both the 3xTF32 and the CUDA-core
+   one).
 4. gradient kernels: dX at every input-gradient class of the train step (the
    forward classes with Cin and Cout swapped, except the convs that read the
    network's input) and dW at every forward class, at the training batch
    (the same 8 half-volumes), in float32 and bfloat16, held against their
-   plain versions (bf16 dX also bit for bit on small-integer inputs) and
-   timed beside them, cuDNN's gradients (torch.nn.grad.conv3d_input /
-   conv3d_weight) and the bound.
+   plain versions (dX also bit for bit on small-integer inputs) and timed
+   beside them, cuDNN's gradients (torch.nn.grad.conv3d_input /
+   conv3d_weight) and the bound (float32: both).
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
@@ -43,7 +44,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    from a torch.Generator on the card. 2 warm-up and 5 timed steps in
    float32, then the same in bfloat16; ms per step, volumes/s, peak memory,
    the losses; the kernels' launches per step by class (25 forward, 23 dX,
-   25 dW) and each kind's kernel, plain, cuDNN and bound time per step;
+   25 dW) and each kind's kernel, plain, cuDNN and bound time per step
+   (float32: both bounds);
    running statistics that moved and conv weights with nonzero gradients.
    Two more steps in float32 and two in bfloat16 run under torch.profiler,
    the first of each as its warm-up, for the device time by kernel and the
@@ -88,6 +90,10 @@ from segmentation_pipeline_torch.training.model import SegModel
 
 # H100 SXM data-sheet peaks (dense): CUDA-core float32, tensor-core bf16, HBM3.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32 on the tensor cores as 3xTF32: three TF32 products per
+# multiply-add at the dense TF32 peak, 495 TFLOP/s. The f32 forward and dX
+# kernel does this; f32 dW stays on the CUDA cores.
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 # NestedResUNet(3 -> 2, filters=40) at the dmri_hippo crop 96x88x24 after the
@@ -126,9 +132,14 @@ DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # max|ref|: float32 sums in another order; bfloat16 adds one rounding of the
 # output to 8 mantissa bits.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# Integers in [-INT_MAX, INT_MAX] are exact in bf16, and so is every f32
-# partial sum of a conv of them (at most 27 * 120 * INT_MAX**2 < 2**24): the
-# bf16 kernels must then equal their plain versions bit for bit.
+# The f32 forward and dX (3xTF32): each product within about 2**-21 of the
+# f32 one, sums in another order. One TF32 product per multiply-add would
+# miss it.
+TF32X3_TOL = 1e-5
+# Integers in [-INT_MAX, INT_MAX] are exact in bf16 and in TF32 (lo = 0),
+# and so is every f32 partial sum of a conv of them (at most 27 * 120 *
+# INT_MAX**2 < 2**24): the forward and dX kernels must then equal their
+# plain versions bit for bit in both types.
 INT_MAX = 4
 # The card's float32 answer against the port on the CPU: rounding only.
 CPU_PROB_TOL = 1e-4
@@ -139,8 +150,8 @@ CPU_TIE = 1e-3
 # subject is ill-conditioned in float32 (BatchNorm statistics of 2 half-
 # volumes, ReLU kinks): a 1e-7 relative change of the input moves the CPU's
 # own gradients by a few 1e-3 of max|grad|, which the comparison prints. A
-# faulty kernel moves them by O(1); each kernel is also held to 1e-4 of its
-# plain version in the kernel phases.
+# faulty kernel moves them by O(1); each kernel is also held to 1e-5 (forward,
+# dX) or 1e-4 (dW) of its plain version in the kernel phases.
 CPU_GRAD_TOL = 2e-2
 CPU_LOSS_TOL = 1e-5
 
@@ -170,26 +181,48 @@ def time_ms(fn, trials: int = 15, calls: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n, spatial, cin, cout, dtype):
+def bound_ms(n, spatial, cin, cout, dtype, peak_flops=None):
+    """max(operations / peak, bytes / 3.35 TB/s) in ms, and which bounds;
+    the peak is the dtype's unless given."""
     voxels = n * spatial[0] * spatial[1] * spatial[2]
     flops = 2 * voxels * 27 * cin * cout
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (voxels * (cin + cout) + 27 * cin * cout) * size
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / (peak_flops or PEAK_FLOPS[dtype]), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def small_integers(gen, device, *shape):
+def kernel_bound(kind, n, spatial, cin, cout, dtype):
+    """The bound of the work the kernel does (f32 forward and dX as 3xTF32
+    on the tensor cores, f32 dW on the CUDA cores), and in f32 both bounds
+    for the row's private keys."""
+    if dtype != torch.float32:
+        b_ms, b_by = bound_ms(n, spatial, cin, cout, dtype)
+        return b_ms, b_by, {}
+    both = {"_bound_3xtf32": bound_ms(n, spatial, cin, cout, dtype, PEAK_FLOPS_3XTF32),
+            "_bound_cuda_cores": bound_ms(n, spatial, cin, cout, dtype)}
+    b_ms, b_by = both["_bound_cuda_cores" if kind == "dw" else "_bound_3xtf32"]
+    return b_ms, b_by, {key: ms for key, (ms, _) in both.items()}
+
+
+def bound_text(b_ms, b_by, both):
+    if not both:
+        return f"bound {b_ms:.4f} ({b_by})"
+    return (f"bound {b_ms:.4f} ({b_by}), 3xTF32 {both['_bound_3xtf32']:.4f}, "
+            f"CUDA cores {both['_bound_cuda_cores']:.4f}")
+
+
+def small_integers(gen, device, dtype, *shape):
     return torch.randint(-INT_MAX, INT_MAX + 1, shape, generator=gen,
-                         device=device).to(torch.bfloat16)
+                         device=device).to(dtype)
 
 
 def check_exact(name, kernel, plain, *inputs):
-    """A bf16 kernel against its plain version on small-integer inputs: bit
-    equality."""
+    """A forward or dX kernel against its plain version on small-integer
+    inputs: bit equality."""
     out, ref = kernel(*inputs), plain(*inputs)
     torch.cuda.synchronize()
-    if not (out.dtype == torch.bfloat16 and torch.equal(out, ref)):
+    if not (out.dtype == inputs[0].dtype and torch.equal(out, ref)):
         raise AssertionError(f"{name}: differs from the plain version on integer inputs "
                              f"(max abs diff {(out.float() - ref.float()).abs().max().item()})")
     print(f"kernel {name}: bit-exact against the plain version on integer inputs", flush=True)
@@ -213,15 +246,15 @@ def kernel_phase(device, batch: int, seed: int, card: str):
             scale = ref.abs().max().item()
             name = f"conv3x3_s1p1_{DTYPE_NAMES[dtype]} {batch}x{'x'.join(map(str, spatial))} " \
                    f"{cin}->{cout}"
-            if not (out.shape == ref.shape and err <= KERNEL_TOL[dtype] * scale):
-                raise AssertionError(f"{name}: max abs err {err} > {KERNEL_TOL[dtype]} * {scale}")
-            if dtype == torch.bfloat16:
-                check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain,
-                            small_integers(gen, device, batch, *spatial, cin),
-                            small_integers(gen, device, 3, 3, 3, cin, cout))
+            tol = TF32X3_TOL if dtype == torch.float32 else KERNEL_TOL[dtype]
+            if not (out.shape == ref.shape and err <= tol * scale):
+                raise AssertionError(f"{name}: max abs err {err} > {tol} * {scale}")
+            check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain,
+                        small_integers(gen, device, dtype, batch, *spatial, cin),
+                        small_integers(gen, device, dtype, 3, 3, 3, cin, cout))
             x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
             w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
-            b_ms, b_by = bound_ms(batch, spatial, cin, cout, dtype)
+            b_ms, b_by, both = kernel_bound("fwd", batch, spatial, cin, cout, dtype)
             rows.append({
                 "name": name,
                 "route": "cuda",
@@ -236,10 +269,11 @@ def kernel_phase(device, batch: int, seed: int, card: str):
                 "library_ms": time_ms(lambda: F.conv3d(x_ncdhw, w_oi, padding=1)),
                 "_key": (str(dtype), batch, *spatial, cin, cout),
                 "_kind": "fwd",
+                **both,
             })
             print(f"kernel {name}: err {err:.3g} (max|ref| {scale:.3g}) "
                   f"ms {rows[-1]['ms']:.4f} plain {rows[-1]['plain_ms']:.4f} "
-                  f"cuDNN {rows[-1]['library_ms']:.4f} bound {b_ms:.4f} ({b_by}) [{card}]",
+                  f"cuDNN {rows[-1]['library_ms']:.4f} {bound_text(b_ms, b_by, both)} [{card}]",
                   flush=True)
             del x, k, out, ref, x_ncdhw, w_oi
     return rows
@@ -263,7 +297,6 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
             x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
             g_ncdhw = g.permute(0, 4, 1, 2, 3).contiguous()
             w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
-            b_ms, b_by = bound_ms(batch, spatial, cin, cout, dtype)
             cases = []
             if cin != IN_CHANNELS:
                 cases.append(("dx", cout, cin, lambda: conv3x3_s1p1_dx(g, k),
@@ -283,16 +316,16 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
                 scale = ref.abs().max().item()
                 name = f"conv3x3_s1p1_{kind}_{DTYPE_NAMES[dtype]} " \
                        f"{batch}x{'x'.join(map(str, spatial))} {c_in}->{c_out}"
-                if not (out.shape == ref.shape and out.dtype == dtype
-                        and err <= KERNEL_TOL[dtype] * scale):
-                    raise AssertionError(f"{name}: max abs err {err} > "
-                                         f"{KERNEL_TOL[dtype]} * {scale}")
+                tol = TF32X3_TOL if (kind, dtype) == ("dx", torch.float32) else KERNEL_TOL[dtype]
+                if not (out.shape == ref.shape and out.dtype == dtype and err <= tol * scale):
+                    raise AssertionError(f"{name}: max abs err {err} > {tol} * {scale}")
                 if kind == "dw" and not torch.equal(out, kernel()):
                     raise AssertionError(f"{name}: two runs differ")
-                if kind == "dx" and dtype == torch.bfloat16:
+                if kind == "dx":
                     check_exact(name, conv3x3_s1p1_dx, conv3x3_s1p1_dx_plain,
-                                small_integers(gen, device, batch, *spatial, cout),
-                                small_integers(gen, device, 3, 3, 3, cin, cout))
+                                small_integers(gen, device, dtype, batch, *spatial, cout),
+                                small_integers(gen, device, dtype, 3, 3, 3, cin, cout))
+                b_ms, b_by, both = kernel_bound(kind, batch, spatial, cin, cout, dtype)
                 source = conv3x3.SOURCE if kind == "dx" else conv3x3.DW_SOURCE
                 rows.append({
                     "name": name,
@@ -308,11 +341,12 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
                     "library_ms": time_ms(library),
                     "_key": (str(dtype), batch, *spatial, c_in, c_out),
                     "_kind": kind,
+                    **both,
                 })
                 print(f"kernel {name}: err {err:.3g} (max|ref| {scale:.3g}) "
                       f"ms {rows[-1]['ms']:.4f} plain {rows[-1]['plain_ms']:.4f} "
-                      f"cuDNN {rows[-1]['library_ms']:.4f} bound {b_ms:.4f} ({b_by}) [{card}]",
-                      flush=True)
+                      f"cuDNN {rows[-1]['library_ms']:.4f} {bound_text(b_ms, b_by, both)} "
+                      f"[{card}]", flush=True)
                 del out, ref
             del x, g, k, x_ncdhw, g_ncdhw, w_oi, cases
     return rows
@@ -560,7 +594,7 @@ def launch_counts():
 def profile_train_step(step, state, batch, generator, name, card):
     """One train step under torch.profiler (after one more as its warm-up):
     device busy time, idle share and the kernels that take the most device
-    time (the forward and dX share conv3x3_s1p1_kernel in float32 and
+    time (the forward and dX share conv3x3_s1p1_tf32x3_kernel in float32 and
     conv3x3_s1p1_mma_kernel in bfloat16; dW is dw_partial_kernel in float32,
     dw_partial_mma_kernel in bfloat16, and dw_reduce_kernel). Returns the
     forward + dX kernels' device time, the dW kernels' and the device busy
@@ -575,7 +609,7 @@ def profile_train_step(step, state, batch, generator, name, card):
     for e in events[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
     by_label = {}
-    for label, needle in (("conv3x3_s1p1[_mma]_kernel (forward + dX)", "conv3x3_s1p1_"),
+    for label, needle in (("conv3x3_s1p1_{tf32x3,mma}_kernel (forward + dX)", "conv3x3_s1p1_"),
                           ("dw_partial[_mma]_kernel + dw_reduce_kernel (dW)", "dw_")):
         picked = [e for e in events if needle in e.key]
         by_label[needle] = sum(e.self_device_time_total for e in picked) / 1e3
@@ -672,12 +706,16 @@ def step_totals(rows, card):
         for kind in ("fwd", "dx", "dw"):
             picked = [(row, per_forward[row["_key"][2:]] if kind == "fwd" else row["launches"])
                       for row in rows if row["_kind"] == kind and row["_key"][0] == str(dtype)]
-            total = {key: sum(row[key] * n for row, n in picked)
-                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+            if dtype == torch.float32:
+                keys += ["_bound_3xtf32", "_bound_cuda_cores"]
+            total = {key: sum(row[key] * n for row, n in picked) for key in keys}
+            both = (f" (3xTF32 {total['_bound_3xtf32']:.4f}, CUDA cores "
+                    f"{total['_bound_cuda_cores']:.4f})" if dtype == torch.float32 else "")
             print(f"per train step {kind} {name}: kernel {total['ms']:.4f} ms, plain "
                   f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound "
-                  f"{total['bound_ms']:.4f} ({sum(n for _, n in picked)} launches) [{card}]",
-                  flush=True)
+                  f"{total['bound_ms']:.4f}{both} ({sum(n for _, n in picked)} launches) "
+                  f"[{card}]", flush=True)
 
 
 def cpu_train_comparison(card, state_dict, batch_cf):
@@ -752,9 +790,8 @@ def main() -> int:
     step_totals(rows + grad_rows, card)
     cpu_train_comparison(card, state_dict, batch_cf)
 
-    rows += grad_rows
-    for row in rows:
-        del row["_key"], row["_kind"]
+    rows = [{key: value for key, value in row.items() if not key.startswith("_")}
+            for row in rows + grad_rows]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

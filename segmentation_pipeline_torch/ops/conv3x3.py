@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel
 ``segmentation_pipeline_tpu/ops/pallas_conv.py::pallas_conv3d_3x3_s1p1`` and
 its custom VJP (``_fwd``/``_bwd``):
 
-- ``conv3x3_s1p1``: the forward, the CUDA kernel ``csrc/conv3x3_s1p1.cu``:
-  f32 on the CUDA cores, bf16 on the tensor cores (``mma.sync``).
+- ``conv3x3_s1p1``: the forward, the CUDA kernel ``csrc/conv3x3_s1p1.cu``
+  on the tensor cores (``mma.sync``): bf16, and f32 as three TF32 products
+  per multiply-add (3xTF32, f32-accurate).
 - ``conv3x3_s1p1_dx``: the input gradient, the same kernel on the cotangent
   with the kernel flipped along (W, H, D) and Cin/Cout swapped
   (``pallas_conv.py:118-120``).

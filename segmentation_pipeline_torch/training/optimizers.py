@@ -58,5 +58,7 @@ def SGD(lr: float = 1e-2, momentum: float = 0.0, nesterov: bool = False,
         weight_decay: float = 0.0, accumulate_steps: int = 1,
         **_ignored) -> OptimizerFactory:
     _no_accumulation(accumulate_steps)
-    return OptimizerFactory(torch.optim.SGD, lr=lr, momentum=momentum, nesterov=nesterov,
-                            weight_decay=weight_decay)
+    # optax.sgd ignores nesterov without momentum (plain SGD steps); torch's
+    # SGD rejects the pair
+    return OptimizerFactory(torch.optim.SGD, lr=lr, momentum=momentum,
+                            nesterov=nesterov and bool(momentum), weight_decay=weight_decay)

@@ -174,28 +174,57 @@ def test_dw_bf16_exact_on_small_integers(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (1, 9, 17, 11, 2, 40),
                                    (1, 9, 17, 11, 40, 80), (1, 7, 13, 10, 40, 120),
                                    (1, 7, 13, 10, 120, 40), (2, 5, 9, 6, 8, 8)])
-def test_fwd_dx_bf16_exact_on_small_integers(cuda_device, shape):
-    """x, k and g small integers (|v| <= 4, exact in bf16): every product and
-    every f32 partial sum (at most 27 * 120 * 16 < 2**24) is exact, so the
-    tensor-core kernel must equal the plain version bit for bit, forward
-    (Cin -> Cout) and dX (Cout -> Cin), whatever the order of its sums; both
-    round the same f32 sum to bf16 once. An indexing slip shows here as a
+def test_fwd_dx_bf16_exact_on_small_integers(cuda_device, dtype, shape):
+    """x, k and g small integers (|v| <= 4, exact in bf16, and in TF32 with
+    lo = 0 in float32): every product and every f32 partial sum (at most
+    27 * 120 * 16 < 2**24) is exact, so the tensor-core kernels (bf16, and
+    3xTF32 in float32) must equal the plain version bit for bit, forward
+    (Cin -> Cout) and dX (Cout -> Cin), whatever the order of their sums; in
+    bf16 both round the same f32 sum once. An indexing slip shows here as a
     wrong integer."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n, w, h, d, cin, cout = shape
     rng = np.random.default_rng(19)
-    x, k, g = (torch.from_numpy(rng.integers(-4, 5, s).astype(np.float32)).to(cuda_device,
-                                                                                torch.bfloat16)
+    x, k, g = (torch.from_numpy(rng.integers(-4, 5, s).astype(np.float32)).to(cuda_device, dtype)
                for s in ((n, w, h, d, cin), (3, 3, 3, cin, cout), (n, w, h, d, cout)))
     before = (conv3x3_s1p1.launches, conv3x3_s1p1_dx.launches)
     out, dx = conv3x3_s1p1(x, k), conv3x3_s1p1_dx(g, k)
     torch.cuda.synchronize()
     assert (conv3x3_s1p1.launches, conv3x3_s1p1_dx.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and dx.dtype == dtype
     assert torch.equal(out, conv3x3_s1p1_plain(x, k))
     assert torch.equal(dx, conv3x3_s1p1_dx_plain(g, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (1, 9, 17, 11, 2, 40),
+                                   (1, 9, 17, 11, 80, 40), (1, 9, 17, 11, 40, 80),
+                                   (1, 7, 13, 10, 120, 40), (1, 7, 13, 10, 40, 120),
+                                   (2, 6, 11, 3, 40, 40), (2, 5, 9, 6, 12, 6)])
+def test_fwd_dx_f32_within_1e5_of_plain_on_card(cuda_device, shape):
+    """The float32 forward and dX (3xTF32 on the tensor cores) against the
+    plain float32 version on random inputs, at 1e-5 of max|ref|: each
+    product within about 2**-21 of the f32 one, sums in another order. One
+    TF32 product alone misses this by an order of magnitude. Cout 80 and
+    120 forward, and dX 40 -> 80 and 40 -> 120 (the shapes 80 -> 40 and
+    120 -> 40), take two and three Cout chunks; Cin 12 a half-empty second
+    chunk staged by cp.async, Cout 6 single stores of a padded n8 tile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    x = torch.from_numpy(_normal((n, w, h, d, cin), 20)).to(cuda_device)
+    k = torch.from_numpy(_normal((3, 3, 3, cin, cout), 21) / np.float32(np.sqrt(27 * cin)))
+    k = k.to(cuda_device)
+    g = torch.from_numpy(_normal((n, w, h, d, cout), 22)).to(cuda_device)
+    for out, ref in ((conv3x3_s1p1(x, k), conv3x3_s1p1_plain(x, k)),
+                     (conv3x3_s1p1_dx(g, k), conv3x3_s1p1_dx_plain(g, k))):
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err / ref.abs().max().item()
 
 
 @pytest.mark.cuda

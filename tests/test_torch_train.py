@@ -181,11 +181,13 @@ OPTIMIZERS = [
     ("Adam", {"lr": 1e-2, "weight_decay": 0.1, "decoupled": True}),
     ("SGD", {"lr": 0.1, "momentum": 0.9}),
     ("SGD", {"lr": 0.1, "momentum": 0.9, "nesterov": True, "weight_decay": 0.05}),
+    ("SGD", {"lr": 0.1, "momentum": 0.0, "nesterov": True}),
 ]
 
 
 @pytest.mark.parametrize("name,kwargs", OPTIMIZERS,
-                         ids=["adam", "adam_l2", "adamw", "sgd_momentum", "sgd_nesterov"])
+                         ids=["adam", "adam_l2", "adamw", "sgd_momentum", "sgd_nesterov",
+                              "sgd_nesterov_no_momentum"])
 def test_optimizer_matches_optax(name, kwargs):
     """The same 5-step gradient sequence through the optax transformation
     and the torch optimizer the port's factory makes."""
