@@ -16,8 +16,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    on the tensor cores) and bfloat16 (tensor cores), held against its plain
    PyTorch version on the same inputs (also bit for bit on small-integer
    inputs) and timed with CUDA events beside the plain version, F.conv3d
-   (cuDNN) and the card's bound (float32: both the 3xTF32 and the CUDA-core
-   one).
+   (cuDNN) and the card's bound (float32: the 3xTF32 bound, with the
+   CUDA-core one beside it).
 4. gradient kernels: dX at every input-gradient class of the train step (the
    forward classes with Cin and Cout swapped, except the convs that read the
    network's input) and dW at every forward class, at the training batch
@@ -91,8 +91,9 @@ from segmentation_pipeline_torch.training.model import SegModel
 # H100 SXM data-sheet peaks (dense): CUDA-core float32, tensor-core bf16, HBM3.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # float32 on the tensor cores as 3xTF32: three TF32 products per
-# multiply-add at the dense TF32 peak, 495 TFLOP/s. The f32 forward and dX
-# kernel does this; f32 dW stays on the CUDA cores.
+# multiply-add at the dense TF32 peak, 495 TFLOP/s. This is the fastest
+# f32-accurate rate the card has, so it gives every f32 row's bound_ms,
+# whichever unit the kernel uses; the CUDA-core bound is printed beside it.
 PEAK_FLOPS_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
@@ -192,24 +193,20 @@ def bound_ms(n, spatial, cin, cout, dtype, peak_flops=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_bound(kind, n, spatial, cin, cout, dtype):
-    """The bound of the work the kernel does (f32 forward and dX as 3xTF32
-    on the tensor cores, f32 dW on the CUDA cores), and in f32 both bounds
-    for the row's private keys."""
+def kernel_bound(n, spatial, cin, cout, dtype):
+    """The card's bound for the function (f32 at the 3xTF32 rate), and in
+    f32 the CUDA-core bound for the row's private key."""
     if dtype != torch.float32:
         b_ms, b_by = bound_ms(n, spatial, cin, cout, dtype)
         return b_ms, b_by, {}
-    both = {"_bound_3xtf32": bound_ms(n, spatial, cin, cout, dtype, PEAK_FLOPS_3XTF32),
-            "_bound_cuda_cores": bound_ms(n, spatial, cin, cout, dtype)}
-    b_ms, b_by = both["_bound_cuda_cores" if kind == "dw" else "_bound_3xtf32"]
-    return b_ms, b_by, {key: ms for key, (ms, _) in both.items()}
+    b_ms, b_by = bound_ms(n, spatial, cin, cout, dtype, PEAK_FLOPS_3XTF32)
+    return b_ms, b_by, {"_bound_cuda_cores": bound_ms(n, spatial, cin, cout, dtype)[0]}
 
 
 def bound_text(b_ms, b_by, both):
     if not both:
         return f"bound {b_ms:.4f} ({b_by})"
-    return (f"bound {b_ms:.4f} ({b_by}), 3xTF32 {both['_bound_3xtf32']:.4f}, "
-            f"CUDA cores {both['_bound_cuda_cores']:.4f}")
+    return f"bound {b_ms:.4f} ({b_by}, 3xTF32), CUDA cores {both['_bound_cuda_cores']:.4f}"
 
 
 def small_integers(gen, device, dtype, *shape):
@@ -254,7 +251,7 @@ def kernel_phase(device, batch: int, seed: int, card: str):
                         small_integers(gen, device, dtype, 3, 3, 3, cin, cout))
             x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
             w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
-            b_ms, b_by, both = kernel_bound("fwd", batch, spatial, cin, cout, dtype)
+            b_ms, b_by, both = kernel_bound(batch, spatial, cin, cout, dtype)
             rows.append({
                 "name": name,
                 "route": "cuda",
@@ -325,7 +322,7 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
                     check_exact(name, conv3x3_s1p1_dx, conv3x3_s1p1_dx_plain,
                                 small_integers(gen, device, dtype, batch, *spatial, cout),
                                 small_integers(gen, device, dtype, 3, 3, 3, cin, cout))
-                b_ms, b_by, both = kernel_bound(kind, batch, spatial, cin, cout, dtype)
+                b_ms, b_by, both = kernel_bound(batch, spatial, cin, cout, dtype)
                 source = conv3x3.SOURCE if kind == "dx" else conv3x3.DW_SOURCE
                 rows.append({
                     "name": name,
@@ -708,10 +705,10 @@ def step_totals(rows, card):
                       for row in rows if row["_kind"] == kind and row["_key"][0] == str(dtype)]
             keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
             if dtype == torch.float32:
-                keys += ["_bound_3xtf32", "_bound_cuda_cores"]
+                keys.append("_bound_cuda_cores")
             total = {key: sum(row[key] * n for row, n in picked) for key in keys}
-            both = (f" (3xTF32 {total['_bound_3xtf32']:.4f}, CUDA cores "
-                    f"{total['_bound_cuda_cores']:.4f})" if dtype == torch.float32 else "")
+            both = (f" (3xTF32; CUDA cores {total['_bound_cuda_cores']:.4f})"
+                    if dtype == torch.float32 else "")
             print(f"per train step {kind} {name}: kernel {total['ms']:.4f} ms, plain "
                   f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound "
                   f"{total['bound_ms']:.4f}{both} ({sum(n for _, n in picked)} launches) "

@@ -178,7 +178,7 @@ def test_dw_bf16_exact_on_small_integers(cuda_device, shape):
 @pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (1, 9, 17, 11, 2, 40),
                                    (1, 9, 17, 11, 40, 80), (1, 7, 13, 10, 40, 120),
                                    (1, 7, 13, 10, 120, 40), (2, 5, 9, 6, 8, 8)])
-def test_fwd_dx_bf16_exact_on_small_integers(cuda_device, dtype, shape):
+def test_fwd_dx_exact_on_small_integers(cuda_device, dtype, shape):
     """x, k and g small integers (|v| <= 4, exact in bf16, and in TF32 with
     lo = 0 in float32): every product and every f32 partial sum (at most
     27 * 120 * 16 < 2**24) is exact, so the tensor-core kernels (bf16, and
