@@ -21,10 +21,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 4. gradient kernels: dX at every input-gradient class of the train step (the
    forward classes with Cin and Cout swapped, except the convs that read the
    network's input) and dW at every forward class, at the training batch
-   (the same 8 half-volumes), in float32 and bfloat16, held against their
-   plain versions (dX also bit for bit on small-integer inputs) and timed
-   beside them, cuDNN's gradients (torch.nn.grad.conv3d_input /
-   conv3d_weight) and the bound (float32: both).
+   (the same 8 half-volumes), in float32 (3xTF32 on the tensor cores) and
+   bfloat16 (tensor cores), held against their plain versions (also bit for
+   bit on small-integer inputs; dW twice, bitwise equal) and timed beside
+   them, cuDNN's gradients (torch.nn.grad.conv3d_input / conv3d_weight) and
+   the bound (float32: both).
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
@@ -129,18 +130,18 @@ BLOCKS = [("conv0_0", 0, True), ("conv1_0", 1, False), ("conv0_1", 2, True),
           ("conv3_0", 1, False), ("conv2_1", 3, False), ("conv1_2", 3, False),
           ("conv0_3", 2, True)]
 DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# Kernel against its plain float32 version on the same inputs, relative to
-# max|ref|: float32 sums in another order; bfloat16 adds one rounding of the
-# output to 8 mantissa bits.
-KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# The f32 forward and dX (3xTF32): each product within about 2**-21 of the
-# f32 one, sums in another order. One TF32 product per multiply-add would
-# miss it.
+# Every f32 kernel (forward, dX, dW: 3xTF32) against its plain float32
+# version on the same inputs, relative to max|ref|: each product within about
+# 2**-21 of the f32 one, sums in another order. One TF32 product per
+# multiply-add would miss it.
 TF32X3_TOL = 1e-5
+# bfloat16 adds one rounding of the output to 8 mantissa bits.
+KERNEL_TOL = {torch.float32: TF32X3_TOL, torch.bfloat16: 2e-2}
 # Integers in [-INT_MAX, INT_MAX] are exact in bf16 and in TF32 (lo = 0),
 # and so is every f32 partial sum of a conv of them (at most 27 * 120 *
-# INT_MAX**2 < 2**24): the forward and dX kernels must then equal their
-# plain versions bit for bit in both types.
+# INT_MAX**2) or of a weight gradient (at most 811,008 voxels * INT_MAX**2),
+# both below 2**24: every kernel must then equal its plain version bit for
+# bit in both types.
 INT_MAX = 4
 # The card's float32 answer against the port on the CPU: rounding only.
 CPU_PROB_TOL = 1e-4
@@ -151,8 +152,8 @@ CPU_TIE = 1e-3
 # subject is ill-conditioned in float32 (BatchNorm statistics of 2 half-
 # volumes, ReLU kinks): a 1e-7 relative change of the input moves the CPU's
 # own gradients by a few 1e-3 of max|grad|, which the comparison prints. A
-# faulty kernel moves them by O(1); each kernel is also held to 1e-5 (forward,
-# dX) or 1e-4 (dW) of its plain version in the kernel phases.
+# faulty kernel moves them by O(1); each f32 kernel is also held to 1e-5 of
+# its plain version in the kernel phases.
 CPU_GRAD_TOL = 2e-2
 CPU_LOSS_TOL = 1e-5
 
@@ -215,8 +216,8 @@ def small_integers(gen, device, dtype, *shape):
 
 
 def check_exact(name, kernel, plain, *inputs):
-    """A forward or dX kernel against its plain version on small-integer
-    inputs: bit equality."""
+    """A kernel against its plain version on small-integer inputs: bit
+    equality."""
     out, ref = kernel(*inputs), plain(*inputs)
     torch.cuda.synchronize()
     if not (out.dtype == inputs[0].dtype and torch.equal(out, ref)):
@@ -243,7 +244,7 @@ def kernel_phase(device, batch: int, seed: int, card: str):
             scale = ref.abs().max().item()
             name = f"conv3x3_s1p1_{DTYPE_NAMES[dtype]} {batch}x{'x'.join(map(str, spatial))} " \
                    f"{cin}->{cout}"
-            tol = TF32X3_TOL if dtype == torch.float32 else KERNEL_TOL[dtype]
+            tol = KERNEL_TOL[dtype]
             if not (out.shape == ref.shape and err <= tol * scale):
                 raise AssertionError(f"{name}: max abs err {err} > {tol} * {scale}")
             check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain,
@@ -300,28 +301,31 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
                               lambda: conv3x3_s1p1_dx_plain(g, k),
                               lambda: conv3x3_s1p1_dx_plain(g.float(), k.float()),
                               lambda: torch.nn.grad.conv3d_input(x_ncdhw.shape, w_oi,
-                                                                 g_ncdhw, padding=1)))
+                                                                 g_ncdhw, padding=1),
+                              (conv3x3_s1p1_dx, conv3x3_s1p1_dx_plain,
+                               (batch, *spatial, cout), (3, 3, 3, cin, cout))))
             cases.append(("dw", cin, cout, lambda: conv3x3_s1p1_dw(x, g),
                           lambda: conv3x3_s1p1_dw_plain(x, g),
                           lambda: conv3x3_s1p1_dw_plain(x.float(), g.float()),
                           lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_oi.shape, g_ncdhw,
-                                                              padding=1)))
-            for kind, c_in, c_out, kernel, plain, reference, library in cases:
+                                                              padding=1),
+                          (conv3x3_s1p1_dw, conv3x3_s1p1_dw_plain,
+                           (batch, *spatial, cin), (batch, *spatial, cout))))
+            for kind, c_in, c_out, kernel, plain, reference, library, exact in cases:
                 out, ref = kernel(), reference()
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs().max().item()
                 scale = ref.abs().max().item()
                 name = f"conv3x3_s1p1_{kind}_{DTYPE_NAMES[dtype]} " \
                        f"{batch}x{'x'.join(map(str, spatial))} {c_in}->{c_out}"
-                tol = TF32X3_TOL if (kind, dtype) == ("dx", torch.float32) else KERNEL_TOL[dtype]
+                tol = KERNEL_TOL[dtype]
                 if not (out.shape == ref.shape and out.dtype == dtype and err <= tol * scale):
                     raise AssertionError(f"{name}: max abs err {err} > {tol} * {scale}")
                 if kind == "dw" and not torch.equal(out, kernel()):
                     raise AssertionError(f"{name}: two runs differ")
-                if kind == "dx":
-                    check_exact(name, conv3x3_s1p1_dx, conv3x3_s1p1_dx_plain,
-                                small_integers(gen, device, dtype, batch, *spatial, cout),
-                                small_integers(gen, device, dtype, 3, 3, 3, cin, cout))
+                exact_kernel, exact_plain, *shapes = exact
+                check_exact(name, exact_kernel, exact_plain,
+                            *(small_integers(gen, device, dtype, *shape) for shape in shapes))
                 b_ms, b_by, both = kernel_bound(batch, spatial, cin, cout, dtype)
                 source = conv3x3.SOURCE if kind == "dx" else conv3x3.DW_SOURCE
                 rows.append({
@@ -592,8 +596,8 @@ def profile_train_step(step, state, batch, generator, name, card):
     """One train step under torch.profiler (after one more as its warm-up):
     device busy time, idle share and the kernels that take the most device
     time (the forward and dX share conv3x3_s1p1_tf32x3_kernel in float32 and
-    conv3x3_s1p1_mma_kernel in bfloat16; dW is dw_partial_kernel in float32,
-    dw_partial_mma_kernel in bfloat16, and dw_reduce_kernel). Returns the
+    conv3x3_s1p1_mma_kernel in bfloat16; dW is dw_partial_tf32x3_kernel in
+    float32, dw_partial_mma_kernel in bfloat16, and dw_reduce_kernel). Returns the
     forward + dX kernels' device time, the dW kernels' and the device busy
     time, in ms (None if nothing was traced)."""
     events, wall_ms = profiled(lambda: step(state, batch, generator))
@@ -607,7 +611,7 @@ def profile_train_step(step, state, batch, generator, name, card):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}")
     by_label = {}
     for label, needle in (("conv3x3_s1p1_{tf32x3,mma}_kernel (forward + dX)", "conv3x3_s1p1_"),
-                          ("dw_partial[_mma]_kernel + dw_reduce_kernel (dW)", "dw_")):
+                          ("dw_partial_{tf32x3,mma}_kernel + dw_reduce_kernel (dW)", "dw_")):
         picked = [e for e in events if needle in e.key]
         by_label[needle] = sum(e.self_device_time_total for e in picked) / 1e3
         print(f"profile {name} train step: {label} {by_label[needle]:.3f} ms in "

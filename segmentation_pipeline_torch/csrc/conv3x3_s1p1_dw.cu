@@ -14,11 +14,12 @@
 //
 // What bounds it on an H100: the same 2*N*W*H*D*27*Cin*Cout operations as
 // the forward against (N*W*H*D*(Cin+Cout) + 27*Cin*Cout) * sizeof(T) bytes,
-// so the arithmetic is the limit: 67 TFLOP/s in f32 on the CUDA cores, 989
-// TFLOP/s in bf16 on the tensor cores. Unlike the forward, the reduction
-// runs over the M = N*W*H*D voxels (811,008 at the dmri_hippo training
-// batch) into a small output (27*Cin*Cout, at most 129,600 values at
-// 120->40): a split-K problem.
+// so the arithmetic is the limit. Both types run on the tensor cores: bf16
+// at 989 TFLOP/s; f32 as three TF32 products per multiply-add, so its bound
+// is max(3 * ops / 495 TFLOP/s, bytes / 3.35 TB/s). Unlike the forward, the
+// reduction runs over the M = N*W*H*D voxels (811,008 at the dmri_hippo
+// training batch) into a small output (27*Cin*Cout, at most 129,600 values
+// at 120->40): a split-K problem.
 //
 // What this design does about it. Both types cut the voxels into 4x8x8
 // tiles, as the forward does, give each block a contiguous run of tiles (one
@@ -26,38 +27,70 @@
 // chunk and the g tile of its Cout chunk in shared memory, keep the sums in
 // registers across the run, and write them to an f32 workspace row of the
 // split; a second launch adds the rows in split order. No atomics: the
-// result is the same bit for bit from run to run.
+// result is the same bit for bit from run to run. Per block the work is a
+// GEMM with a long K: (27 taps * Cin chunk) x voxels times voxels x Cout
+// chunk. M rows go in groups of 8 channels of one tap, two groups per m16
+// tile (the two may be of different taps); Cout goes on the n8 side, its n8
+// tiles shared out evenly over chunks of at most five (NT, a template
+// parameter: five tiles for Cout 40, none padded; one padded tile for Cout
+// 2); K walks the tile's voxels in D-runs of 8. Grid.x is the Cin chunk, so
+// the blocks that read one g tile run side by side and share it in L2;
+// grid.y is the split, grid.z the Cout chunk.
 //
-// f32 (dw_partial_kernel): on the CUDA cores in f32 FMAs. Grid.x is the
-// split, grid.y Cin in chunks of 4 or 8, grid.z Cout in chunks of up to 64;
-// each thread adds, for one tap, a 4 (Cin) x 8 (Cout) block of products over
-// the tile's 256 voxels (32 FMAs per three 16-byte shared-memory reads).
-//
-// bf16 (dw_partial_mma_kernel): on the tensor cores with warp-level
-// mma.sync m16n8k16 (bf16 x bf16, f32 sums). Per block the work is a GEMM
-// with a long K: (27 taps * Cin chunk) x voxels times voxels x Cout chunk.
-// M rows go in groups of 8 channels of one tap, two groups per m16 tile (the
-// two may be of different taps), so a chunk of 16 channels is 54 groups, 27
-// m16 tiles, none padded; Cout goes on the n8 side, its n8 tiles shared out
-// evenly over chunks of at most five (NT, a template parameter: five tiles
-// for Cout 40, none padded; one padded tile for Cout 2); K steps 16 voxels,
-// two D-runs of 8. Staging keeps bf16 (48-byte x rows, g rows an odd number of
+// bf16 (dw_partial_mma_kernel): mma.sync m16n8k16 (bf16 x bf16, f32 sums),
+// Cin chunks of 16 channels (54 groups, 27 m16 tiles, none padded), K steps
+// of two D-runs. Staging keeps bf16 (48-byte x rows, g rows an odd number of
 // 16 bytes, so ldmatrix reads are free of bank conflicts) and goes by
 // cp.async into the other of two buffers while the current tile is
 // multiplied. Fragments come from ldmatrix.x4.trans, each lane giving its
 // own row address, so the tap's shift of the halo is only another address.
-// Grid.x is the Cin chunk, so the blocks that read one g tile run side by
-// side and share it in L2; grid.y is the split, grid.z the Cout chunk. Nine
-// warps take three m16 tiles each across all of the chunk's n8 tiles: 60 f32
-// sums a thread at NT 5, within the 96 registers that two resident blocks
-// per SM leave.
+// Nine warps take three m16 tiles each across all of the chunk's n8 tiles:
+// 60 f32 sums a thread at NT 5, within the 96 registers that two resident
+// blocks per SM leave.
+//
+// f32 (dw_partial_tf32x3_kernel): mma.sync m16n8k8 in TF32 (f32 sums), as
+// the forward's f32 kernel computes it: each operand is split into hi = v
+// rounded to TF32 (cvt.rna) and lo = v - hi (exact in f32) rounded to TF32
+// too; a step sums lo*hi + hi*lo + hi*hi, small terms first, and drops
+// lo*lo, so each product is within about 2^-21 of the f32 one. The three
+// products of a K step (one D-run of 8 voxels) are summed from zero and
+// added to the running f32 sum with an FADD (rounded to nearest): the
+// tensor core's own f32 accumulation truncates, and a running sum fed by
+// every MMA of a split (up to 32 steps per tile times thousands of tiles)
+// would drift toward zero. K is the slow axis of both staged operands
+// ([voxel][channel]), and ldmatrix transposes only 16-bit values, so both
+// fragments come from 32-bit shared loads: a0..a3 = x at (voxel t, channel
+// g), (t, g) of the second group, (t + 4, g), (t + 4, g) of the second
+// group, and b0, b1 = g at (voxel t, Cout g), (t + 4, g), with g = lane /
+// 4, t = lane % 4. They are free of bank conflicts because a voxel row is 8
+// or 24 banks mod 32: x rows of 8 floats (the Cin chunk is 8 channels: 27
+// groups, 14 m16 tiles, the last half padded), g rows of (NT|1)*8 floats.
+// cvt.rna.tf32.f32 compiles to four instructions (add, Inf/NaN test,
+// select, mask), so a split costs seven; the g tile is therefore split once
+// as it is staged, into hi and lo halves, rather than by each of the seven
+// warps at every K step (70 of about 214 instructions a warp would run
+// per K step at NT 5). The x halo is split in registers after its load,
+// once per K step for all NT n8 tiles: staging it split too would leave one
+// block per SM. One buffer, 99 KB at NT 5 (x by cp.async where rows of 4
+// channels are whole, g through registers for the split, plain loads for
+// Cin 3 and Cout 2); two resident blocks per SM, so one stages while the
+// other multiplies. Seven warps take two m16 tiles each across all of the
+// chunk's n8 tiles. Two blocks of seven warps (eight for register
+// allocation) leave a thread 128 registers, which hold its 40 sums and one
+// K step's fragments with the D-run loop rolled.
+//
+// The PTX helpers (ldmatrix, mma, cp.async, load8, load4, the TF32 split)
+// are copies of those in conv3x3_s1p1.cu: each source is built and hashed on
+// its own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -66,25 +99,34 @@ constexpr int HW = TW + 2, HH = TH + 2, HD = TD + 2;  // x halo tile
 constexpr int HALO = HW * HH * HD;
 constexpr int TILE = TW * TH * TD;
 constexpr int TAPS = 27;
-constexpr int CI_T = 4;              // input channels per thread
-constexpr int CO_T = 8;              // output channels per thread
-constexpr int COUT_BLOCK = 64;       // output channels per block (grid.z)
-constexpr int MAX_THREADS = TAPS * (8 / CI_T) * (COUT_BLOCK / CO_T);
-constexpr int TARGET_BLOCKS = 4 * 132;  // four blocks for each of the H100's SMs
+constexpr int COUT_BLOCK = 40;       // at most this many output channels per block (grid.z)
 constexpr int REDUCE_THREADS = 256;
 
 // The bf16 tensor-core kernel.
 constexpr int MMA_CIK = 16;          // input channels per block (grid.x): two groups of 8
 constexpr int MMA_XS = 24;           // x halo row stride in elements: 48 bytes
-constexpr int MMA_COUT_BLOCK = 40;   // at most this many output channels per block (grid.z)
 constexpr int MMA_WARPS = 9;
 constexpr int MMA_MT = 3;            // m16 tiles per warp: 9 * 3 = 27 * 16 / 16
 constexpr int MMA_THREADS = MMA_WARPS * 32;
 constexpr int MMA_TARGET_BLOCKS = 4 * 132;  // two waves of two resident blocks per SM
-constexpr int MMA_BUF = HALO * MMA_XS + TILE * MMA_COUT_BLOCK;  // one tile's staging, bf16
+constexpr int MMA_BUF = HALO * MMA_XS + TILE * COUT_BLOCK;  // one tile's staging, bf16
 constexpr size_t MMA_SMEM = 2 * MMA_BUF * sizeof(__nv_bfloat16);  // double-buffered
 
-__device__ __forceinline__ float to_float(float v) { return v; }
+// The f32 3xTF32 tensor-core kernel.
+constexpr int TF_CIK = 8;            // input channels per block (grid.x): one group of 8
+constexpr int TF_XS = 8;             // x halo row stride in floats: 8 banks
+constexpr int TF_WARPS = 7;
+constexpr int TF_MT = 2;             // m16 tiles per warp: 7 * 2 = 14 = ceil(27 groups / 2)
+constexpr int TF_THREADS = TF_WARPS * 32;
+constexpr int TF_MIN_BLOCKS = 2;     // resident blocks per SM the registers must allow
+constexpr int TF_TARGET_BLOCKS = 2 * TF_MIN_BLOCKS * 132;  // two waves
+static_assert(2 * TF_WARPS * TF_MT >= TAPS, "the warps' m16 tiles cover the 27 groups");
+
+// One tile's f32 staging at NT n8 tiles: the x halo, then the g tile's hi
+// and lo halves.
+constexpr int tf_smem(int nt) {
+  return (HALO * TF_XS + 2 * TILE * (nt | 1) * 8) * (int)sizeof(float);
+}
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
@@ -93,129 +135,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 struct Geometry {
-  int tiles_w, tiles_h, tiles_d, n_tiles, cik, cout_pad;
-  Geometry(int N, int W, int H, int D, int Cin, int Cout)
+  int tiles_w, tiles_h, tiles_d, n_tiles;
+  Geometry(int N, int W, int H, int D)
       : tiles_w((W + TW - 1) / TW), tiles_h((H + TH - 1) / TH), tiles_d((D + TD - 1) / TD),
-        n_tiles(N * tiles_w * tiles_h * tiles_d), cik(Cin <= 4 ? 4 : 8),
-        cout_pad((std::min(Cout, COUT_BLOCK) + CO_T - 1) / CO_T * CO_T) {}
-  int chunks_in(int Cin) const { return (Cin + cik - 1) / cik; }
+        n_tiles(N * tiles_w * tiles_h * tiles_d) {}
   static int chunks_out(int Cout) { return (Cout + COUT_BLOCK - 1) / COUT_BLOCK; }
-  int splits(int Cin, int Cout) const {
-    const int per_split = chunks_in(Cin) * chunks_out(Cout);
-    return std::max(1, std::min(n_tiles, (TARGET_BLOCKS + per_split - 1) / per_split));
-  }
-  static int mma_chunks_in(int Cin) { return (Cin + MMA_CIK - 1) / MMA_CIK; }
-  static int mma_chunks_out(int Cout) { return (Cout + MMA_COUT_BLOCK - 1) / MMA_COUT_BLOCK; }
-  // At most MMA_TARGET_BLOCKS blocks, so the last wave is not a sliver.
-  int mma_splits(int Cin, int Cout) const {
-    const int per_split = mma_chunks_in(Cin) * mma_chunks_out(Cout);
-    return std::max(1, std::min(n_tiles, MMA_TARGET_BLOCKS / per_split));
+  // At most `target` blocks of `cik` input channels each, so the last wave
+  // is not a sliver.
+  int splits(int Cin, int Cout, int cik, int target) const {
+    const int per_split = (Cin + cik - 1) / cik * chunks_out(Cout);
+    return std::max(1, std::min(n_tiles, target / per_split));
   }
 };
-
-// grid: (splits, ceil(Cin / CIK), ceil(Cout / COUT_BLOCK));
-// blockDim.x = TAPS * (CIK / CI_T) * (cout_pad / CO_T).
-// work[s][tap][ci][co] receives split s's sums.
-template <typename T, int CIK>
-__global__ void __launch_bounds__(MAX_THREADS)
-dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ work,
-                  int W, int H, int D, int Cin, int Cout, int tiles_w, int tiles_h,
-                  int tiles_d, int n_tiles, int splits, int cout_pad) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                // [HALO][CIK]
-  float* gs = smem + HALO * CIK;   // [TILE][cout_pad]
-
-  const int s = blockIdx.x;
-  const int c0 = blockIdx.y * CIK;
-  const int co0 = blockIdx.z * COUT_BLOCK;
-  const int ncin = min(CIK, Cin - c0);
-  const int ncout = min(cout_pad, Cout - co0);
-
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int ncog = cout_pad / CO_T;
-  const int cog = tid % ncog;               // this thread's Cout group
-  const int cig = (tid / ncog) % (CIK / CI_T);  // its Cin group
-  const int tap = tid / (ncog * (CIK / CI_T));
-  const int off = ((tap / 9) * HH + (tap / 3) % 3) * HD + tap % 3;
-
-  float acc[CI_T][CO_T];
-#pragma unroll
-  for (int i = 0; i < CI_T; ++i)
-#pragma unroll
-    for (int j = 0; j < CO_T; ++j) acc[i][j] = 0.f;
-
-  const int t_begin = (int)((long long)n_tiles * s / splits);
-  const int t_end = (int)((long long)n_tiles * (s + 1) / splits);
-  for (int t = t_begin; t < t_end; ++t) {
-    int r = t;
-    const int d0 = (r % tiles_d) * TD;
-    r /= tiles_d;
-    const int h0 = (r % tiles_h) * TH;
-    r /= tiles_h;
-    const int w0 = (r % tiles_w) * TW;
-    const int n = r / tiles_w;
-
-    // x halo for channels c0..c0+CIK, zero outside the volume and past Cin.
-    for (int i = tid; i < HALO * CIK; i += nthreads) {
-      const int ci = i % CIK;
-      const int v = i / CIK;
-      const int gd = d0 + v % HD - 1;
-      const int gh = h0 + (v / HD) % HH - 1;
-      const int gw = w0 + v / (HD * HH) - 1;
-      float val = 0.f;
-      if (ci < ncin && gw >= 0 && gw < W && gh >= 0 && gh < H && gd >= 0 && gd < D)
-        val = to_float(x[((((size_t)n * W + gw) * H + gh) * D + gd) * Cin + c0 + ci]);
-      xs[i] = val;
-    }
-    // g tile for this block's outputs, zero outside the volume and past Cout.
-    for (int i = tid; i < TILE * cout_pad; i += nthreads) {
-      const int co = i % cout_pad;
-      const int v = i / cout_pad;
-      const int od = d0 + v % TD;
-      const int oh = h0 + (v / TD) % TH;
-      const int ow = w0 + v / (TD * TH);
-      float val = 0.f;
-      if (co < ncout && ow < W && oh < H && od < D)
-        val = to_float(g[((((size_t)n * W + ow) * H + oh) * D + od) * Cout + co0 + co]);
-      gs[i] = val;
-    }
-    __syncthreads();
-
-    const float* xp = xs + off * CIK + cig * CI_T;
-    const float* gp = gs + cog * CO_T;
-    for (int vw = 0; vw < TW; ++vw)
-      for (int vh = 0; vh < TH; ++vh) {
-        const float* xr = xp + (vw * HH + vh) * HD * CIK;
-        const float* gr = gp + (vw * TH + vh) * TD * cout_pad;
-#pragma unroll
-        for (int vd = 0; vd < TD; ++vd) {
-          const float4 xv = *reinterpret_cast<const float4*>(xr + vd * CIK);
-          const float4 ga = *reinterpret_cast<const float4*>(gr + vd * cout_pad);
-          const float4 gb = *reinterpret_cast<const float4*>(gr + vd * cout_pad + 4);
-          const float xa[CI_T] = {xv.x, xv.y, xv.z, xv.w};
-          const float gv[CO_T] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-          for (int i = 0; i < CI_T; ++i)
-#pragma unroll
-            for (int j = 0; j < CO_T; ++j) acc[i][j] = fmaf(xa[i], gv[j], acc[i][j]);
-        }
-      }
-    __syncthreads();
-  }
-
-  float* row = work + (size_t)s * TAPS * Cin * Cout;
-#pragma unroll
-  for (int i = 0; i < CI_T; ++i) {
-    const int ci = cig * CI_T + i;
-    if (ci >= ncin) continue;
-#pragma unroll
-    for (int j = 0; j < CO_T; ++j) {
-      const int co = cog * CO_T + j;
-      if (co < ncout) row[((size_t)tap * Cin + c0 + ci) * Cout + co0 + co] = acc[i][j];
-    }
-  }
-}
 
 // Four (x4) or two (x2) 8x8 matrices of 16-bit values from shared memory,
 // transposed: lanes 8i..8i+7 give the addresses of matrix i's eight rows of
@@ -274,7 +205,46 @@ __device__ __forceinline__ void cp_async_wait_all_but_latest() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// grid: (ceil(Cin / MMA_CIK), splits, ceil(Cout / MMA_COUT_BLOCK)); each
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// c += a (16x8, row-major) * b (8x8, column-major), TF32 in, f32 sums.
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// the 32-bit pattern with its low 13 bits zero.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo to about 2^-22 of v: hi = v in TF32, lo = v - hi (exact in
+// f32) rounded to TF32 too, not passed raw for the tensor core to truncate.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// Four floats from src[0..4), zero from index `count` on (all four when it
+// is 0 or less), one by one: for channel counts that are not a multiple of 4.
+__device__ __forceinline__ float4 load4(const float* src, int count) {
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < count) v[k] = src[k];
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// grid: (ceil(Cin / MMA_CIK), splits, ceil(Cout / COUT_BLOCK)); each
 // block takes NT n8 tiles of Cout (the last block's may run past Cout);
 // blockDim.x = MMA_THREADS. work[s][tap][ci][co] receives split s's sums.
 // x_vec / g_vec: Cin / Cout is a multiple of 8 and the tensor 16-byte
@@ -443,6 +413,171 @@ dw_partial_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
 }
 
+// grid: (ceil(Cin / TF_CIK), splits, ceil(Cout / COUT_BLOCK)); each block
+// takes NT n8 tiles of Cout (the last block's may run past Cout);
+// blockDim.x = TF_THREADS. work[s][tap][ci][co] receives split s's sums.
+// x_vec / g_vec: Cin / Cout is a multiple of 4 and the tensor 16-byte
+// aligned, so groups of 4 channels are staged by cp.async (x) or one 16-byte
+// load (g).
+template <int NT>
+__global__ void __launch_bounds__(TF_THREADS, TF_MIN_BLOCKS)
+dw_partial_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         float* __restrict__ work, int W, int H, int D, int Cin, int Cout,
+                         int tiles_w, int tiles_h, int tiles_d, int n_tiles, int splits,
+                         int x_vec, int g_vec) {
+  constexpr int GS = (NT | 1) * 8;  // g row stride in floats: 8 or 24 banks mod 32
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  float* xs = reinterpret_cast<float*>(smem_bytes);  // [HALO][TF_XS]
+  uint32_t* gs = reinterpret_cast<uint32_t*>(xs + HALO * TF_XS);  // [2][TILE][GS]: hi, lo
+
+  const int c0 = blockIdx.x * TF_CIK;
+  const int s = blockIdx.y;
+  const int co0 = blockIdx.z * NT * 8;
+  const int ncin = min(TF_CIK, Cin - c0);
+  const int ncout = min(NT * 8, Cout - co0);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // A (16 rows (tap, ci) x 8 voxels) of m16 tile j = warp + TF_WARPS * mt:
+  // rows 0-7 are the channels of tap 2j, rows 8-15 those of tap 2j + 1 (tap
+  // 27, the padded half of tile 13, reads tap 0 and is never stored). A
+  // lane's loads are voxels t and t + 4 of the D-run at channel g; the tap
+  // adds its offset in the halo.
+  int a_off[TF_MT][2];
+#pragma unroll
+  for (int mt = 0; mt < TF_MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int tap = 2 * (warp + TF_WARPS * mt) + h;
+      if (tap >= TAPS) tap = 0;
+      a_off[mt][h] = (((tap / 9) * HH + (tap / 3) % 3) * HD + tap % 3) * TF_XS;
+    }
+  const float* xa = xs + (lane & 3) * TF_XS + (lane >> 2);
+  // B (8 voxels x 8 Cout, column-major): b0 = (voxel t, Cout g), b1 =
+  // (t + 4, g) of each n8 tile, hi and lo.
+  const uint32_t* gb = gs + (lane & 3) * GS + (lane >> 2);
+
+  float acc[TF_MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < TF_MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+
+  const int t_begin = (int)((long long)n_tiles * s / splits);
+  const int t_end = (int)((long long)n_tiles * (s + 1) / splits);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    int r = tile;
+    const int d0 = (r % tiles_d) * TD;
+    r /= tiles_d;
+    const int h0 = (r % tiles_h) * TH;
+    r /= tiles_h;
+    const int w0 = (r % tiles_w) * TW;
+    const int n = r / tiles_w;
+    // x halo for channels c0..c0+8, 4 at a time, zero outside the volume and
+    // past Cin.
+    for (int i = tid; i < HALO * 2; i += TF_THREADS) {
+      const int c = (i & 1) * 4;
+      const int v = i >> 1;
+      const int gd = d0 + v % HD - 1;
+      const int gh = h0 + (v / HD) % HH - 1;
+      const int gw = w0 + v / (HD * HH) - 1;
+      const bool in = c < ncin && gw >= 0 && gw < W && gh >= 0 && gh < H && gd >= 0 && gd < D;
+      const float* src = in ? x + ((((size_t)n * W + gw) * H + gh) * D + gd) * Cin + c0 + c : x;
+      float* dst = xs + v * TF_XS + c;
+      if (x_vec)
+        cp_async16((uint32_t)__cvta_generic_to_shared(dst), src, in ? 16 : 0);
+      else
+        *reinterpret_cast<float4*>(dst) = load4(src, in ? ncin - c : 0);
+    }
+    // g tile for this block's outputs, 4 at a time, zero outside the volume
+    // and past Cout, split into hi and lo once here rather than by every
+    // warp at every K step.
+    for (int i = tid; i < TILE * NT * 2; i += TF_THREADS) {
+      const int c = (i % (NT * 2)) * 4;
+      const int v = i / (NT * 2);
+      const int od = d0 + v % TD;
+      const int oh = h0 + (v / TD) % TH;
+      const int ow = w0 + v / (TD * TH);
+      const bool in = c < ncout && ow < W && oh < H && od < D;
+      const float* src = in ? g + ((((size_t)n * W + ow) * H + oh) * D + od) * Cout + co0 + c : g;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g_vec) {
+        if (in) val = *reinterpret_cast<const float4*>(src);
+      } else {
+        val = load4(src, in ? ncout - c : 0);
+      }
+      uint4 hi, lo;
+      split_tf32(val.x, hi.x, lo.x);
+      split_tf32(val.y, hi.y, lo.y);
+      split_tf32(val.z, hi.z, lo.z);
+      split_tf32(val.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(gs + v * GS + c) = hi;
+      *reinterpret_cast<uint4*>(gs + (TILE + v) * GS + c) = lo;
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    // K steps of one D-run of 8 voxels, run r at (vw, vh) = (r / TH, r % TH):
+    // halo voxel ((vw * HH + vh) * HD + d), tile voxel (r * TD + d). Rolled,
+    // as the forward's f32 tap loop, to keep one step's fragments live.
+#pragma unroll 1
+    for (int run = 0; run < TILE / TD; ++run) {
+      const float* xr = xa + ((run / TH) * HH + run % TH) * HD * TF_XS;
+      uint32_t a_hi[TF_MT][4], a_lo[TF_MT][4];
+#pragma unroll
+      for (int mt = 0; mt < TF_MT; ++mt) {
+        const float a[4] = {xr[a_off[mt][0]], xr[a_off[mt][1]], xr[4 * TF_XS + a_off[mt][0]],
+                            xr[4 * TF_XS + a_off[mt][1]]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], a_hi[mt][e], a_lo[mt][e]);
+      }
+      const uint32_t* gr = gb + run * TD * GS;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const uint32_t b_hi[2] = {gr[t * 8], gr[t * 8 + 4 * GS]};
+        const uint32_t b_lo[2] = {gr[TILE * GS + t * 8], gr[TILE * GS + t * 8 + 4 * GS]};
+#pragma unroll
+        for (int mt = 0; mt < TF_MT; ++mt) {
+          float step[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32_1688(step, a_lo[mt], b_hi[0], b_hi[1]);
+          mma_tf32_1688(step, a_hi[mt], b_lo[0], b_lo[1]);
+          mma_tf32_1688(step, a_hi[mt], b_hi[0], b_hi[1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][t][e] += step[e];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Accumulator e of n8 tile t: row (e / 2) * 8 + lane / 4 of the m16 tile,
+  // that is channel lane / 4 of tap 2j + e / 2, and column t * 8 +
+  // 2 * (lane % 4) + e % 2.
+  float* row = work + (size_t)s * TAPS * Cin * Cout;
+  const int ci = lane >> 2;
+  if (ci >= ncin) return;
+#pragma unroll
+  for (int mt = 0; mt < TF_MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tap = 2 * (warp + TF_WARPS * mt) + h;
+      if (tap >= TAPS) continue;
+      float* out = row + ((size_t)tap * Cin + c0 + ci) * Cout + co0;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = t * 8 + 2 * (lane & 3) + e;
+          if (co < ncout) out[co] = acc[mt][t][2 * h + e];
+        }
+    }
+}
+
 // out[k] = sum over s in order of work[s][k], k < 27 * Cin * Cout.
 template <typename T>
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -454,79 +589,88 @@ dw_reduce_kernel(const float* __restrict__ work, T* __restrict__ out, int K, int
   out[k] = from_float<T>(sum);
 }
 
-template <typename T, int CIK>
-cudaError_t launch_partial(const T* x, const T* g, float* work, int N, int W, int H, int D,
-                           int Cin, int Cout, int splits, const Geometry& geo,
-                           cudaStream_t stream) {
-  const size_t smem = (size_t)(HALO * CIK + TILE * geo.cout_pad) * sizeof(float);
-  // Above 48 KB a block's shared memory must be allowed per function and device.
-  const cudaError_t err = cudaFuncSetAttribute(
-      dw_partial_kernel<T, CIK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Above 48 KB a block's shared memory must be allowed per kernel and
+// device: once per kernel (one `allowed` for each) and device, not on every
+// launch.
+cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<uint64_t>& allowed) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const dim3 grid(splits, geo.chunks_in(Cin), Geometry::chunks_out(Cout));
-  const dim3 block(TAPS * (CIK / CI_T) * (geo.cout_pad / CO_T));
-  dw_partial_kernel<T, CIK><<<grid, block, smem, stream>>>(
-      x, g, work, W, H, D, Cin, Cout, geo.tiles_w, geo.tiles_h, geo.tiles_d, geo.n_tiles,
-      splits, geo.cout_pad);
-  return cudaGetLastError();
-}
-
-// f32: the CUDA-core kernel.
-cudaError_t launch_partials(const float* x, const float* g, float* work, int N, int W, int H,
-                            int D, int Cin, int Cout, int splits, const Geometry& geo,
-                            cudaStream_t st) {
-  return geo.cik == 4
-             ? launch_partial<float, 4>(x, g, work, N, W, H, D, Cin, Cout, splits, geo, st)
-             : launch_partial<float, 8>(x, g, work, N, W, H, D, Cin, Cout, splits, geo, st);
+  const uint64_t bit = uint64_t(1) << (device & 63);
+  if (allowed.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) allowed |= bit;
+  return err;
 }
 
 template <int NT>
-cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* g, float* work, int W, int H,
-                       int D, int Cin, int Cout, int splits, const Geometry& geo,
-                       cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      dw_partial_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
+cudaError_t launch_partials(const float* x, const float* g, float* work, int W, int H, int D,
+                            int Cin, int Cout, int splits, const Geometry& geo,
+                            cudaStream_t st) {
+  static std::atomic<uint64_t> allowed{0};
+  constexpr int smem = tf_smem(NT);
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(dw_partial_tf32x3_kernel<NT>), smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int x_vec = Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int g_vec = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid((Cin + TF_CIK - 1) / TF_CIK, splits, Geometry::chunks_out(Cout));
+  dw_partial_tf32x3_kernel<NT><<<grid, TF_THREADS, smem, st>>>(
+      x, g, work, W, H, D, Cin, Cout, geo.tiles_w, geo.tiles_h, geo.tiles_d, geo.n_tiles,
+      splits, x_vec, g_vec);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_partials(const __nv_bfloat16* x, const __nv_bfloat16* g, float* work, int W,
+                            int H, int D, int Cin, int Cout, int splits, const Geometry& geo,
+                            cudaStream_t st) {
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(dw_partial_mma_kernel<NT>),
+                                     (int)MMA_SMEM, allowed);
   if (err != cudaSuccess) return err;
   const int x_vec = Cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int g_vec = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  const dim3 grid(Geometry::mma_chunks_in(Cin), splits, Geometry::mma_chunks_out(Cout));
+  const dim3 grid((Cin + MMA_CIK - 1) / MMA_CIK, splits, Geometry::chunks_out(Cout));
   dw_partial_mma_kernel<NT><<<grid, MMA_THREADS, MMA_SMEM, st>>>(
       x, g, work, W, H, D, Cin, Cout, geo.tiles_w, geo.tiles_h, geo.tiles_d, geo.n_tiles,
       splits, x_vec, g_vec);
   return cudaGetLastError();
 }
 
-// bf16: the tensor-core kernel, with Cout's n8 tiles shared out evenly over
-// the Cout chunks (5 for Cout 40, 1 for Cout 2).
-cudaError_t launch_partials(const __nv_bfloat16* x, const __nv_bfloat16* g, float* work, int N,
-                            int W, int H, int D, int Cin, int Cout, int splits,
-                            const Geometry& geo, cudaStream_t st) {
-  const int chunks = Geometry::mma_chunks_out(Cout);
+// Cout's n8 tiles shared out evenly over the fewest chunks of at most
+// COUT_BLOCK channels: launch(NT) with NT the n8 tiles per chunk (5 for
+// Cout 40, 1 for Cout 2).
+template <typename Launch>
+cudaError_t by_cout_chunks(int Cout, Launch&& launch) {
+  const int chunks = Geometry::chunks_out(Cout);
   switch (((Cout + 7) / 8 + chunks - 1) / chunks) {
-    case 1: return launch_mma<1>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
-    case 2: return launch_mma<2>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
-    case 3: return launch_mma<3>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
-    case 4: return launch_mma<4>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
-    default: return launch_mma<5>(x, g, work, W, H, D, Cin, Cout, splits, geo, st);
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 2: return launch(std::integral_constant<int, 2>{});
+    case 3: return launch(std::integral_constant<int, 3>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    default: return launch(std::integral_constant<int, 5>{});
   }
 }
 
 template <typename T> int splits_for(const Geometry& geo, int Cin, int Cout);
 template <> int splits_for<float>(const Geometry& geo, int Cin, int Cout) {
-  return geo.splits(Cin, Cout);
+  return geo.splits(Cin, Cout, TF_CIK, TF_TARGET_BLOCKS);
 }
 template <> int splits_for<__nv_bfloat16>(const Geometry& geo, int Cin, int Cout) {
-  return geo.mma_splits(Cin, Cout);
+  return geo.splits(Cin, Cout, MMA_CIK, MMA_TARGET_BLOCKS);
 }
 
 template <typename T>
 int launch(const void* x, const void* g, void* work, void* out, int N, int W, int H, int D,
            int Cin, int Cout, int splits, void* stream) {
-  const Geometry geo(N, W, H, D, Cin, Cout);
+  const Geometry geo(N, W, H, D);
   if (splits != splits_for<T>(geo, Cin, Cout)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_partials((const T*)x, (const T*)g, (float*)work, N, W, H, D, Cin,
-                                    Cout, splits, geo, st);
+  cudaError_t err = by_cout_chunks(Cout, [&](auto nt) {
+    return launch_partials<decltype(nt)::value>((const T*)x, (const T*)g, (float*)work, W, H,
+                                                D, Cin, Cout, splits, geo, st);
+  });
   if (err != cudaSuccess) return (int)err;
   const int K = TAPS * Cin * Cout;
   dw_reduce_kernel<T><<<(K + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, st>>>(
@@ -539,11 +683,11 @@ int launch(const void* x, const void* g, void* work, void* out, int N, int W, in
 // The number of splits (workspace rows of 27 * Cin * Cout floats) that the
 // launch for this shape and type takes.
 extern "C" int conv3x3_s1p1_dw_splits_f32(int N, int W, int H, int D, int Cin, int Cout) {
-  return splits_for<float>(Geometry(N, W, H, D, Cin, Cout), Cin, Cout);
+  return splits_for<float>(Geometry(N, W, H, D), Cin, Cout);
 }
 
 extern "C" int conv3x3_s1p1_dw_splits_bf16(int N, int W, int H, int D, int Cin, int Cout) {
-  return splits_for<__nv_bfloat16>(Geometry(N, W, H, D, Cin, Cout), Cin, Cout);
+  return splits_for<__nv_bfloat16>(Geometry(N, W, H, D), Cin, Cout);
 }
 
 extern "C" int conv3x3_s1p1_dw_f32(const void* x, const void* g, void* work, void* out, int N,

@@ -12,8 +12,8 @@ its custom VJP (``_fwd``/``_bwd``):
   with the kernel flipped along (W, H, D) and Cin/Cout swapped
   (``pallas_conv.py:118-120``).
 - ``conv3x3_s1p1_dw``: the weight gradient, the CUDA kernel
-  ``csrc/conv3x3_s1p1_dw.cu`` (``pallas_conv.py:128-142``): f32 on the
-  CUDA cores, bf16 on the tensor cores (``mma.sync``).
+  ``csrc/conv3x3_s1p1_dw.cu`` (``pallas_conv.py:128-142``) on the tensor
+  cores (``mma.sync``): bf16, and f32 as 3xTF32.
 - ``Conv3x3S1P1``: the ``torch.autograd.Function`` that ties them together.
 
 Each wrapper launches its kernel on a CUDA tensor or raises; on a CPU tensor

@@ -154,22 +154,26 @@ def test_gradient_kernels_match_plain_on_card(cuda_device, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 6, 5, 7, 3, 2), (2, 9, 17, 11, 40, 40),
                                    (1, 7, 13, 10, 120, 40), (2, 5, 9, 6, 8, 8),
                                    (1, 9, 17, 11, 80, 70)])
-def test_dw_bf16_exact_on_small_integers(cuda_device, shape):
-    """x and g small integers (|v| <= 4, exact in bf16): every product and
-    every f32 partial sum (at most 3,366 voxels * 16 < 2**24) is exact, so the
-    tensor-core kernel must equal the plain version bit for bit, whatever the
-    order of its sums. An indexing slip shows here as a wrong integer."""
+def test_dw_bf16_exact_on_small_integers(cuda_device, dtype, shape):
+    """x and g small integers (|v| <= 4, exact in bf16, and in TF32 with
+    lo = 0 in float32): every product and every f32 partial sum (at most
+    3,366 voxels * 16 < 2**24) is exact, so the tensor-core kernels (bf16,
+    and 3xTF32 in float32) must equal the plain version bit for bit,
+    whatever the order of their sums. An indexing slip shows here as a wrong
+    integer."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n, w, h, d, cin, cout = shape
     rng = np.random.default_rng(18)
     x = torch.from_numpy(rng.integers(-4, 5, (n, w, h, d, cin)).astype(np.float32))
     g = torch.from_numpy(rng.integers(-4, 5, (n, w, h, d, cout)).astype(np.float32))
-    x, g = x.to(cuda_device, torch.bfloat16), g.to(cuda_device, torch.bfloat16)
+    x, g = x.to(cuda_device, dtype), g.to(cuda_device, dtype)
     dk = conv3x3_s1p1_dw(x, g)
     torch.cuda.synchronize()
+    assert dk.dtype == dtype
     assert torch.equal(dk, conv3x3_s1p1_dw_plain(x, g))
 
 
@@ -225,6 +229,31 @@ def test_fwd_dx_f32_within_1e5_of_plain_on_card(cuda_device, shape):
         assert out.shape == ref.shape and out.dtype == torch.float32
         err = (out - ref).abs().max().item()
         assert err <= 1e-5 * ref.abs().max().item(), err / ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signs", ["mixed", "nonnegative"])
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_dw_f32_within_1e5_of_plain_on_card(cuda_device, shape, signs):
+    """The float32 weight gradient (3xTF32 on the tensor cores) against the
+    plain float32 version on random inputs, at 1e-5 of max|ref|: each
+    product within about 2**-21 of the f32 one, each K step's three products
+    added to the running sum rounded to nearest, sums in another order. Two
+    runs stay bitwise equal. Nonnegative inputs make every product and
+    partial sum positive, where a truncating accumulation would drift most."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    x, g = _normal((n, w, h, d, cin), 23), _normal((n, w, h, d, cout), 24)
+    if signs == "nonnegative":
+        x, g = np.abs(x), np.abs(g)
+    x, g = torch.from_numpy(x).to(cuda_device), torch.from_numpy(g).to(cuda_device)
+    dk, dk_again = conv3x3_s1p1_dw(x, g), conv3x3_s1p1_dw(x, g)
+    ref = conv3x3_s1p1_dw_plain(x, g)
+    torch.cuda.synchronize()
+    assert dk.shape == ref.shape and dk.dtype == torch.float32
+    assert torch.equal(dk, dk_again)
+    err = (dk - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err / ref.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -1,13 +1,14 @@
-"""The float32 forward and input gradient of the 3x3x3 conv as the CUDA
-kernel computes them, three TF32 products per multiply-add ("3xTF32"),
-against the JAX package's Pallas kernel and its custom VJP.
+"""The float32 forward, input gradient and weight gradient of the 3x3x3
+conv as the CUDA kernels compute them, three TF32 products per
+multiply-add ("3xTF32"), against the JAX package's Pallas kernel and its
+custom VJP.
 
-The CUDA kernel runs only on the card, where test_torch_kernels.py holds it
-against the plain version. Here its arithmetic is emulated with the port's
-plain version: each operand v is split into hi = v rounded to TF32 (10
-mantissa bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``
+The CUDA kernels run only on the card, where test_torch_kernels.py holds
+them against the plain versions. Here their arithmetic is emulated with the
+port's plain versions: each operand v is split into hi = v rounded to TF32
+(10 mantissa bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``
 rounds) and lo = v - hi, itself rounded to TF32; the result is
-plain(x_lo, k_hi) + plain(x_hi, k_lo) + plain(x_hi, k_hi) in float32, with
+plain(a_lo, b_hi) + plain(a_hi, b_lo) + plain(a_hi, b_hi) in float32, with
 lo * lo dropped. The Pallas kernel runs in interpret mode, as the JAX
 package's own tests run it on the CPU.
 """
@@ -19,7 +20,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from segmentation_pipeline_tpu.ops.pallas_conv import pallas_conv3d_3x3_s1p1
-from segmentation_pipeline_torch.ops.conv3x3 import conv3x3_s1p1_plain, flip_kernel
+from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1_dw_plain, conv3x3_s1p1_plain,
+                                                     flip_kernel)
 
 torch.set_num_threads(2)
 
@@ -40,11 +42,21 @@ def split(a: np.ndarray):
     return hi, tf32(a - hi)
 
 
+def tf32x3(plain, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """plain(a, b), bilinear, as the kernels compute it: small terms first."""
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    run = lambda u, v: plain(torch.from_numpy(u), torch.from_numpy(v))
+    return (run(a_lo, b_hi) + run(a_hi, b_lo) + run(a_hi, b_hi)).numpy()
+
+
 def conv3x3_tf32x3(x: np.ndarray, k: np.ndarray) -> np.ndarray:
-    """The forward as the kernel computes it, small terms first."""
-    (x_hi, x_lo), (k_hi, k_lo) = split(x), split(k)
-    plain = lambda a, b: conv3x3_s1p1_plain(torch.from_numpy(a), torch.from_numpy(b))
-    return (plain(x_lo, k_hi) + plain(x_hi, k_lo) + plain(x_hi, k_hi)).numpy()
+    """The forward as the kernel computes it."""
+    return tf32x3(conv3x3_s1p1_plain, x, k)
+
+
+def dw_tf32x3(x: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """The weight gradient as its kernel computes it."""
+    return tf32x3(conv3x3_s1p1_dw_plain, x, g)
 
 
 def _inputs(cin, cout, seed):
@@ -59,10 +71,11 @@ def _pallas(x, k):
         return np.asarray(pallas_conv3d_3x3_s1p1(jnp.asarray(x), jnp.asarray(k)))
 
 
-def _pallas_dx(x, k, g):
+def _pallas_vjp(x, k, g):
+    """(dX, dW) of the Pallas kernel's custom VJP."""
     with pltpu.force_tpu_interpret_mode():
         _, vjp = jax.vjp(pallas_conv3d_3x3_s1p1, jnp.asarray(x), jnp.asarray(k))
-        return np.asarray(vjp(jnp.asarray(g))[0])
+        return tuple(np.asarray(d) for d in vjp(jnp.asarray(g)))
 
 
 def _rel_err(out, ref):
@@ -101,7 +114,7 @@ def test_tf32x3_matches_pallas(cin, cout, kind):
         # dX of the forward cout -> cin: the conv of g with the flipped kernel
         x, k = _inputs(cout, cin, 30 + cin + cout)
         g = np.random.default_rng(31).normal(size=(*x.shape[:4], cin)).astype(np.float32)
-        ref = _pallas_dx(x, k, g)
+        ref = _pallas_vjp(x, k, g)[0]
         out = conv3x3_tf32x3(g, flip_kernel(torch.from_numpy(k)).numpy())
     assert out.shape == ref.shape
     assert _rel_err(out, ref) <= TOL
@@ -115,3 +128,33 @@ def test_one_tf32_product_misses_the_tolerance():
     one = conv3x3_s1p1_plain(torch.from_numpy(tf32(x)), torch.from_numpy(tf32(k))).numpy()
     assert _rel_err(one, ref) > 10 * TOL
     assert _rel_err(conv3x3_tf32x3(x, k), ref) <= TOL
+
+
+# (Cin, Cout) of the forward's classes: dW runs for every conv
+DW_PAIRS = [(cin, cout) for cin, cout, kind in PAIRS if kind == "fwd"]
+
+
+def _dw_inputs(cin, cout):
+    x, k = _inputs(cin, cout, 40 + cin + cout)
+    g = np.random.default_rng(41).normal(size=(*x.shape[:4], cout)).astype(np.float32)
+    return x, k, g
+
+
+@pytest.mark.parametrize("cin,cout", DW_PAIRS, ids=[f"dw_{cin}_{cout}" for cin, cout in DW_PAIRS])
+def test_dw_tf32x3_matches_pallas_vjp(cin, cout):
+    """The weight gradient: the sum over voxels of x's tap window times g,
+    against the Pallas kernel's custom VJP (its dW, pallas_conv.py:128-142)."""
+    x, k, g = _dw_inputs(cin, cout)
+    ref = _pallas_vjp(x, k, g)[1]
+    out = dw_tf32x3(x, g)
+    assert out.shape == ref.shape == (3, 3, 3, cin, cout)
+    assert _rel_err(out, ref) <= TOL
+
+
+def test_dw_one_tf32_product_misses_the_tolerance():
+    """hi * hi alone misses 1e-5 for the weight gradient too."""
+    x, k, g = _dw_inputs(120, 40)
+    ref = _pallas_vjp(x, k, g)[1]
+    one = conv3x3_s1p1_dw_plain(torch.from_numpy(tf32(x)), torch.from_numpy(tf32(g))).numpy()
+    assert _rel_err(one, ref) > 10 * TOL
+    assert _rel_err(dw_tf32x3(x, g), ref) <= TOL
