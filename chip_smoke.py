@@ -12,12 +12,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (the conv kernel, which also runs the input gradient dX, and the weight
    gradient dW), in parallel, and prints their -Xptxas -v logs.
 3. kernels: the 3x3x3 conv kernel at each (spatial size, Cin, Cout) class of
-   NestedResUNet-40 at the serving batch (8 half-volumes), in float32 (3xTF32
-   on the tensor cores) and bfloat16 (tensor cores), held against its plain
-   PyTorch version on the same inputs (also bit for bit on small-integer
-   inputs) and timed with CUDA events beside the plain version, F.conv3d
-   (cuDNN) and the card's bound (float32: the 3xTF32 bound, with the
-   CUDA-core one beside it).
+   NestedResUNet-40 at the serving batch (8 half-volumes) and at the TTA
+   batch (32: 4 flips of 8 half-volumes), in float32 (3xTF32 on the tensor
+   cores) and bfloat16 (tensor cores), held against its plain PyTorch
+   version on the same inputs (also bit for bit on small-integer inputs)
+   and timed with CUDA events beside the plain version, F.conv3d (cuDNN)
+   and the card's bound (float32: the 3xTF32 bound, with the CUDA-core one
+   beside it). Then, in float32 and untimed, every class of the 6 permuted
+   grids an EnsembleOrientations request gives it (16 half-volumes).
 4. gradient kernels: dX at every input-gradient class of the train step (the
    forward classes with Cin and Cout swapped, except the convs that read the
    network's input) and dW at every forward class, at the training batch
@@ -37,7 +39,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    One more float32 and one more bfloat16 request run under torch.profiler,
    each after one more as its warm-up, for the device time by kernel and the
    device's idle share.
-6. train: the dmri_hippo train step, as the trainer calls it:
+6. tta: dmri_hippo TTA serving back to the scanner grid, as
+   research/dmri_hippo/hippo_inference.py --ensemble-flips --ensemble-folds
+   --batched-tta runs it: raw subjects of 112x104x20 (mean_dwi, md and fa
+   with a few NaN voxels, the whole-hippocampus labels and the atlas mask;
+   a negative first axis) through the config's default pipeline, which
+   crops them to 96x88x24; two folds of NestedResUNet(3 -> 2, filters=40,
+   dropout_p=0.2) from --seed and --seed + 1, each under
+   EnsembleFlips("majority", spatial_dims=(3, 4), batched=True), under
+   EnsembleModels("majority"); StandardPredict(sagittal_split=True); the
+   inversion of each answer through its subject's tape and the
+   post-processing (remove_holes, keep_components). Requests of 4
+   subjects: one untimed and 5 timed in float32, then the same in
+   bfloat16; ms per request, ms for inversion plus post-processing, peak
+   memory, launches (2 forwards of 25 at N=32 per request), and one
+   profiled request in each type. In float32 also: one unrolled request (8
+   forwards of 25 at N=8, labels equal to the batched one's), one request
+   with device_argmax (the bit-packed fetch equal to the plain one), fold
+   0's flip members on the first subject against the port on the CPU, and
+   one EnsembleOrientations("majority", batched=True) request of one
+   subject (6 forwards of 25 at N=16), with one permuted forward against
+   the CPU. Every answer ends on the 112x104x20 grid with labels in
+   {0, 1, 2}.
+7. train: the dmri_hippo train step, as the trainer calls it:
    make_train_step(sagittal_split=True) with HybridLogisticDiceLoss and
    Adam(lr=2e-4) on SegModel(NestedResUNet(3 -> 2, filters=40,
    dropout_p=0.2)), random flax-layout weights from --seed, a batch of 4
@@ -51,7 +75,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Two more steps in float32 and two in bfloat16 run under torch.profiler,
    the first of each as its warm-up, for the device time by kernel and the
    shares of forward + dX and of dW.
-7. card against CPU: one float32 train step at dropout 0, the same weights
+8. card against CPU: one float32 train step at dropout 0, the same weights
    and the first subject, on the card and on the port on the CPU: the loss
    and every parameter's gradient, beside how far a 1e-7 change of the
    input moves the CPU's own gradients.
@@ -62,6 +86,8 @@ is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import copy
+import itertools
 import json
 import os
 import statistics
@@ -75,9 +101,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from segmentation_pipeline_torch import (Adam, HybridLogisticDiceLoss, LabelMap, ScalarImage,
-                                         Subject, collate_to_device, create_train_state,
-                                         make_train_step)
+import segmentation_pipeline_torch as tsp
+from segmentation_pipeline_torch import (Adam, Compose, ConcatenateImages, CropOrPad,
+                                         CustomOneHot, CustomRemapLabels, EnsembleFlips,
+                                         EnsembleModels, EnsembleOrientations,
+                                         HybridLogisticDiceLoss, LabelMap, RenameProperty,
+                                         ReplaceNan, RescaleIntensity, ScalarImage, Subject,
+                                         collate_to_device, create_train_state,
+                                         invert_records, keep_components, make_train_step,
+                                         remove_holes)
 from segmentation_pipeline_torch.core.nifti import read_nifti, write_nifti
 from segmentation_pipeline_torch.models import Conv3d, NestedResUNet, flax_to_state_dict
 from segmentation_pipeline_torch.ops import build, conv3x3
@@ -85,6 +117,7 @@ from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_
                                                      conv3x3_s1p1_dw_plain, conv3x3_s1p1_dx,
                                                      conv3x3_s1p1_dx_plain, conv3x3_s1p1_plain,
                                                      reset_launch_counts)
+from segmentation_pipeline_torch.core.subject import collate_subjects
 from segmentation_pipeline_torch.prediction import (StandardPredict, reverse_split_and_flip,
                                                     split_and_flip)
 from segmentation_pipeline_torch.training.model import SegModel
@@ -353,8 +386,8 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str):
     return rows
 
 
-def flax_weights(rng: np.random.Generator):
-    """Random NestedResUNet(3 -> 2, filters=40) variables in the flax layout:
+def flax_weights(rng: np.random.Generator, filters: int = FILTERS):
+    """Random NestedResUNet(3 -> 2, filters) variables in the flax layout:
     torch's conv init, BatchNorm statistics with positive, non-unit
     variances."""
     def conv(cin, cout, bias):
@@ -365,22 +398,22 @@ def flax_weights(rng: np.random.Generator):
         return out
 
     def norm():
-        return ({"scale": rng.uniform(0.8, 1.2, FILTERS).astype(np.float32),
-                 "bias": rng.normal(0, 0.1, FILTERS).astype(np.float32)},
-                {"mean": rng.normal(0, 0.05, FILTERS).astype(np.float32),
-                 "var": rng.uniform(0.05, 0.2, FILTERS).astype(np.float32)})
+        return ({"scale": rng.uniform(0.8, 1.2, filters).astype(np.float32),
+                 "bias": rng.normal(0, 0.1, filters).astype(np.float32)},
+                {"mean": rng.normal(0, 0.05, filters).astype(np.float32),
+                 "var": rng.uniform(0.05, 0.2, filters).astype(np.float32)})
 
     params, stats = {}, {}
     for name, width, residual in BLOCKS:
-        cin = IN_CHANNELS if width == 0 else width * FILTERS
+        cin = IN_CHANNELS if width == 0 else width * filters
         block, block_stats = {}, {}
-        for i, c in enumerate((cin, FILTERS)):
-            block[f"Conv3d_{i}"] = conv(c, FILTERS, bias=False)
+        for i, c in enumerate((cin, filters)):
+            block[f"Conv3d_{i}"] = conv(c, filters, bias=False)
             block[f"BatchNorm_{i}"], block_stats[f"BatchNorm_{i}"] = norm()
         if residual:
-            block["res_conv"] = conv(cin, FILTERS, bias=True)
+            block["res_conv"] = conv(cin, filters, bias=True)
         params[name], stats[name] = block, block_stats
-    params["out_conv"] = conv(FILTERS, OUT_CHANNELS, bias=True)
+    params["out_conv"] = conv(filters, OUT_CHANNELS, bias=True)
     return {"params": params, "batch_stats": stats}
 
 
@@ -412,22 +445,33 @@ def expected_launches(dtype, requests, batch):
 
 
 def run_requests(model, predictor, subjects, requests):
-    """Answer ``requests`` requests of SUBJECTS_PER_REQUEST subjects; the
-    kernel's counts are set to 0 just before and read just after."""
+    """Answer ``requests`` requests of SUBJECTS_PER_REQUEST subjects, with
+    the kernel's counts set to 0 just before and read just after."""
+    def run():
+        times, batches = [], []
+        for r in range(requests):
+            group = subjects[r * SUBJECTS_PER_REQUEST:(r + 1) * SUBJECTS_PER_REQUEST]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, batch = predictor.predict(model, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check_answers(group, batch)
+            batches.append(batch)
+        return times, batches
+
+    torch.cuda.reset_peak_memory_stats()
+    (times, batches), launches, by_shape = launches_counted(run)
+    return times, batches, launches, by_shape
+
+
+def launches_counted(run):
+    """``run()`` with the forward kernel's counts set to 0 just before and
+    read just after."""
     conv3x3_s1p1.launches = 0
     conv3x3_s1p1.launches_by_shape.clear()
-    torch.cuda.reset_peak_memory_stats()
-    times, batches = [], []
-    for r in range(requests):
-        group = subjects[r * SUBJECTS_PER_REQUEST:(r + 1) * SUBJECTS_PER_REQUEST]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, batch = predictor.predict(model, group)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        check_answers(group, batch)
-        batches.append(batch)
-    return times, batches, conv3x3_s1p1.launches, Counter(conv3x3_s1p1.launches_by_shape)
+    out = run()
+    return out, conv3x3_s1p1.launches, Counter(conv3x3_s1p1.launches_by_shape)
 
 
 def profiled(run):
@@ -571,6 +615,361 @@ def slice_phase(card, seed, rows):
         row["launches"] = got[row["_key"]]
 
 
+# dmri_hippo's modalities and whole-hippocampus labels
+# (research/dmri_hippo/configs/main_config.py:56-60).
+INPUT_IMAGES = ("mean_dwi", "md", "fa")
+WHOLE_LABELS = {"left_whole": 1, "right_whole": 2}
+
+
+def default_pipeline(crop_shape):
+    """dmri_hippo's ``default`` transforms, built from the port's transforms
+    with the config's own arguments
+    (research/dmri_hippo/configs/main_config.py:128-171,
+    ``build_transforms(crop_shape, predict_hbt=False)["default"]``)."""
+    preprocessing = Compose([
+        ReplaceNan(),
+        CropOrPad(tuple(crop_shape), padding_mode="minimum", mask_name="whole_roi_union"),
+        CustomRemapLabels(remapping=[("right_whole", 2, 1)],
+                          masking_method="Right", include=["whole_roi"]),
+        CustomRemapLabels(remapping=[("right_head", 4, 1), ("right_body", 5, 2),
+                                     ("right_tail", 6, 3)],
+                          masking_method="Right", include=["hbt_roi"]),
+    ])
+    model_io = Compose([
+        RescaleIntensity((-1.0, 1.0), (0.5, 99.5)),
+        ConcatenateImages(image_names=list(INPUT_IMAGES), image_channels=[1, 1, 1],
+                          new_image_name="X"),
+        RenameProperty(old_name="whole_roi", new_name="y"),
+        CustomOneHot(include=["y"]),
+    ])
+    return Compose([preprocessing, model_io])
+
+
+def hippo_volumes(rng: np.random.Generator, grid):
+    """One raw dmri_hippo subject on the scanner grid ``grid`` (W, H, D):
+    the three modalities with a few NaN voxels, the whole-hippocampus label
+    map (1 left, 2 right) and the atlas union mask, and an affine whose
+    first axis is negative (world x falls as W grows, so the right
+    hemisphere is the lower half of W)."""
+    W, H, D = grid
+    out = {}
+    for name in INPUT_IMAGES:
+        vol = rng.gamma(2.0, 1.0, (1, W, H, D)).astype(np.float32)
+        vol.reshape(-1)[rng.choice(vol.size, 5, replace=False)] = np.nan
+        out[name] = vol
+    roi = np.zeros((1, W, H, D), np.int32)
+    hw, hh, dd = max(W // 8, 1), max(H // 6, 1), max(D // 4, 1)
+    h0, d0 = H // 2 + int(rng.integers(-1, 2)), D // 2
+    roi[0, W // 2 - 3 * hw:W // 2 - hw, h0 - hh:h0 + hh, d0 - dd:d0 + dd] = 2  # right
+    roi[0, W // 2 + hw:W // 2 + 3 * hw, h0 - hh:h0 + hh, d0 - dd:d0 + dd] = 1  # left
+    union = np.zeros_like(roi)
+    union[0, W // 2 - 3 * hw - 1:W // 2 + 3 * hw + 1, h0 - hh - 1:h0 + hh + 1,
+          d0 - dd - 1:d0 + dd + 1] = 1
+    out["whole_roi"], out["whole_roi_union"] = roi, union
+    affine = np.diag([-1.2, 1.2, 1.5, 1.0])
+    affine[:3, 3] = [0.6 * W, -0.6 * H, -0.75 * D]
+    return out, affine
+
+
+def hippo_subject(pkg, volumes, affine, name):
+    """A Subject of ``pkg`` (the port, or any package with the same data
+    model) holding copies of ``volumes``."""
+    s = pkg.Subject(name=name)
+    for key in INPUT_IMAGES:
+        s[key] = pkg.ScalarImage(tensor=volumes[key].copy(), affine=affine)
+    s["whole_roi"] = pkg.LabelMap(tensor=volumes["whole_roi"].copy(), affine=affine,
+                                  label_values=dict(WHOLE_LABELS))
+    s["whole_roi_union"] = pkg.LabelMap(tensor=volumes["whole_roi_union"].copy(),
+                                        affine=affine)
+    return s
+
+
+def invert_predictions(subjects):
+    """Invert each subject's ``y_pred`` through its tape back to the original
+    scanner grid, as research/dmri_hippo/hippo_inference.py:29-37 does."""
+    for subject in subjects:
+        pred_subject = Subject({"y": subject["y_pred"]})
+        pred_subject = invert_records(pred_subject, subject.get_composed_history(), warn=False)
+        output_label = pred_subject.get_first_image()
+        subject["y_pred"].set_data(np.asarray(output_label.data).astype(np.int32))
+        subject["y_pred"].affine = output_label.affine
+    return subjects
+
+
+def inference(subjects, predictor, model):
+    """Predict, then invert to the scanner grid: hippo_inference.py:23-38."""
+    subjects, _ = predictor.predict(model=model, subjects=subjects)
+    return invert_predictions(subjects)
+
+
+def post_process(output_label):
+    """Fill holes of up to 64 voxels, then keep as many components as the
+    largest label, as research/dmri_hippo/hippo_inference.py:41-54 does."""
+    label_data = np.asarray(output_label.data)[0]
+    label_data, hole_voxels_removed = remove_holes(label_data, hole_size=64)
+    txt_output = f"Filled {hole_voxels_removed} voxels from detected holes.\n"
+    num_components = int(label_data.max())
+    label_data, num_components_removed, num_elements_removed = keep_components(
+        label_data, num_components)
+    txt_output += (f"Removed {num_elements_removed} voxels from "
+                   f"{num_components_removed} components.")
+    output_label.set_data(label_data[None].astype(np.int32))
+    return txt_output
+
+
+# dmri_hippo TTA serving (research/dmri_hippo/hippo_inference.py
+# --ensemble-flips --ensemble-folds --batched-tta): 2 folds, 4 flips each,
+# folded into the batch of the 8 half-volumes of a request.
+ORIGINAL_GRID = (112, 104, 20)
+FOLDS, FLIP_DIMS = 2, (3, 4)
+TTA_BATCH = 2 * SUBJECTS_PER_REQUEST * 2 ** len(FLIP_DIMS)
+TTA_REQUESTS = 5
+# EnsembleOrientations: one subject, the 8 flips of each of the 6
+# permutations folded into one forward of its 2 half-volumes.
+ORIENT_BATCH = 2 * 8
+
+
+def tta_subjects(rng: np.random.Generator, n: int):
+    """``n`` raw subjects on the scanner grid through the default pipeline."""
+    pipeline = default_pipeline(CROP)
+    out = []
+    for i in range(n):
+        volumes, affine = hippo_volumes(rng, ORIGINAL_GRID)
+        s = hippo_subject(tsp, volumes, affine, f"sub-{i:03d}")
+        s["raw_affine"] = affine
+        out.append(pipeline(s))
+    return out
+
+
+def fold_models(seed, device):
+    models = []
+    for k in range(FOLDS):
+        model = SegModel(NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS,
+                                       dropout_p=0.2), device=device)
+        model.load_state_dict(flax_to_state_dict(
+            flax_weights(np.random.default_rng(seed + k), FILTERS)))
+        models.append(model)
+    return models
+
+
+def fold_flip_tta(folds, batched=True):
+    return EnsembleModels([EnsembleFlips(m, "majority", spatial_dims=FLIP_DIMS, batched=batched)
+                           for m in folds], "majority")
+
+
+def check_original_grid(subjects):
+    """Answers inverted to the scanner grid and post-processed: int32 labels
+    in {0, 1, 2} on the original grid, with the original affine."""
+    for s in subjects:
+        y = s["y_pred"]
+        assert y.data.shape == (1, *ORIGINAL_GRID) and y.data.dtype == np.int32, y
+        assert set(np.unique(y.data)) <= {0, 1, 2}
+        assert np.array_equal(y.affine, s["raw_affine"])
+
+
+def labels_of(subjects):
+    return [np.argmax(s["y_pred"].data, 0) for s in subjects]
+
+
+def tta_requests(tta, predictor, pool, requests):
+    """Answer ``requests`` TTA requests of SUBJECTS_PER_REQUEST fresh copies
+    of subjects from ``pool``. Times, in ms on the host clock: the request
+    (StandardPredict.predict on the ensemble, ending in a synchronize), the
+    inversion to the scanner grid and the post-processing. Also returns the
+    crop-space labels and the first subject's post-processing report of
+    each request."""
+    times = {"request": [], "inversion": [], "post-processing": []}
+    labels, reports = [], []
+    for r in range(requests):
+        group = [copy.deepcopy(pool[(r * SUBJECTS_PER_REQUEST + i) % len(pool)])
+                 for i in range(SUBJECTS_PER_REQUEST)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        group, batch = predictor.predict(tta, group)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        labels.append(labels_of(group))
+        t2 = time.perf_counter()
+        invert_predictions(group)
+        t3 = time.perf_counter()
+        reports.append([post_process(s["y_pred"]) for s in group][0])
+        t4 = time.perf_counter()
+        for key, (a, b) in zip(times, ((t0, t1), (t2, t3), (t3, t4))):
+            times[key].append((b - a) * 1e3)
+        assert tuple(batch["y_pred"].shape) == (SUBJECTS_PER_REQUEST, OUT_CHANNELS, *CROP)
+        check_original_grid(group)
+    shares = np.bincount(np.concatenate([s["y_pred"].data.ravel() for s in group]),
+                         minlength=3) / (len(group) * np.prod(ORIGINAL_GRID))
+    return times, labels, reports, shares
+
+
+def orientation_launches(dtype, requests):
+    """The forward's launches by shape for ``requests`` EnsembleOrientations
+    requests of one subject: each class on each of the 6 permuted grids."""
+    out = Counter()
+    for perm in itertools.permutations(range(3)):
+        for spatial, cin, cout, n in CONV_CLASSES:
+            grid = tuple(spatial[p] for p in perm)
+            out[(str(dtype), ORIENT_BATCH, *grid, cin, cout)] += n * requests
+    return out
+
+
+def check_orientation_grids(device, seed, card):
+    """The forward kernel at every class of the 6 permuted grids of an
+    orientation request, in float32, against its plain version."""
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    worst = 0.0
+    keys = orientation_launches(torch.float32, 1)
+    for _, n, w, h, d, cin, cout in keys:
+        x = torch.rand((n, w, h, d, cin), generator=gen, device=device) * 2 - 1
+        k = (torch.rand((3, 3, 3, cin, cout), generator=gen, device=device) * 2 - 1) \
+            / np.sqrt(27 * cin)
+        out, ref = conv3x3_s1p1(x, k), conv3x3_s1p1_plain(x, k)
+        torch.cuda.synchronize()
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        if not err <= TF32X3_TOL:
+            raise AssertionError(f"conv3x3_s1p1_f32 {n}x{w}x{h}x{d} {cin}->{cout}: max abs err "
+                                 f"{err} of max|ref| > {TF32X3_TOL}")
+        worst = max(worst, err)
+    print(f"kernel conv3x3_s1p1_f32 at the {len(keys)} classes of the 6 permuted grids "
+          f"(N={ORIENT_BATCH}): within {worst:.3g} of max|ref| of the plain version [{card}]",
+          flush=True)
+
+
+def tta_phase(card, seed, rows):
+    """dmri_hippo TTA serving on the card: requests of 4 raw subjects
+    (112x104x20) through the default pipeline, 2 folds of NestedResUNet-40
+    under batched flip TTA and a majority vote, StandardPredict with the
+    sagittal split, the inversion to the scanner grid and the
+    post-processing; f32, then bf16. Fills the launches of the N=32 rows."""
+    rng = np.random.default_rng(seed + 5)
+    pool = tta_subjects(rng, 2 * SUBJECTS_PER_REQUEST)
+    folds = fold_models(seed, "cuda")
+    tta = fold_flip_tta(folds)
+    predictor = StandardPredict(sagittal_split=True, image_names=["X"])
+    per_request = FOLDS * CONVS_PER_FORWARD
+    by_dtype = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = DTYPE_NAMES[dtype]
+        for m in folds:
+            m.compute_dtype = None if dtype == torch.float32 else "bfloat16"
+        # one untimed, uncounted request first (f32: the cold one)
+        tta_requests(tta, predictor, pool, 1)
+        torch.cuda.reset_peak_memory_stats()
+        (times, labels, reports, shares), launches, by_shape = launches_counted(
+            lambda: tta_requests(tta, predictor, pool, TTA_REQUESTS))
+        peak = torch.cuda.max_memory_allocated()
+        assert launches == TTA_REQUESTS * per_request, launches
+        assert by_shape == expected_launches(dtype, TTA_REQUESTS * FOLDS, TTA_BATCH), by_shape
+        by_dtype[str(dtype)] = by_shape
+        for key, values in times.items():
+            print(f"tta {name} {key}: " + ", ".join(f"{t:.3f}" for t in values) + " ms",
+                  flush=True)
+        med = {key: statistics.median(values) for key, values in times.items()}
+        print(f"tta {name}: median {med['request']:.3f} ms per request over {TTA_REQUESTS} "
+              f"({FOLDS} folds x {2 ** len(FLIP_DIMS)} flips, {per_request} launches per request "
+              f"at N={TTA_BATCH}), {SUBJECTS_PER_REQUEST / med['request'] * 1e3:.3f} volumes/s, "
+              f"max_memory_allocated {peak} bytes; per request, inversion median "
+              f"{med['inversion']:.3f} ms and post-processing median "
+              f"{med['post-processing']:.3f} ms (host) [{card}]", flush=True)
+        print(f"tta {name} answers on {'x'.join(map(str, ORIGINAL_GRID))}: label shares "
+              + ", ".join(f"{c}: {v:.4f}" for c, v in enumerate(shares))
+              + " (last request); first subject's post-processing per request: "
+              + " | ".join(r.replace("\n", " ") for r in reports), flush=True)
+        profile_request(tta, predictor, [copy.deepcopy(s) for s in pool[:SUBJECTS_PER_REQUEST]],
+                        f"tta {name}", card)
+        if dtype == torch.float32:
+            tta_checks(card, seed, folds, predictor, pool, labels[0])
+    for row in rows:
+        row["launches"] = by_dtype[row["_key"][0]][row["_key"]]
+        assert row["launches"] > 0, row["name"]
+
+
+def tta_checks(card, seed, folds, predictor, pool, batched_labels):
+    """f32 only: unrolled against batched, the bit-packed fetch against the
+    plain one, fold 0's flip TTA against the port on the CPU, and one
+    EnsembleOrientations request with one permuted forward against the
+    CPU."""
+    first = [copy.deepcopy(s) for s in pool[:SUBJECTS_PER_REQUEST]]
+    (subjects, _), launches, by_shape = launches_counted(
+        lambda: predictor.predict(fold_flip_tta(folds, batched=False),
+                                  [copy.deepcopy(s) for s in first]))
+    unrolled_forwards = FOLDS * 2 ** len(FLIP_DIMS)
+    assert launches == unrolled_forwards * CONVS_PER_FORWARD, launches
+    assert by_shape == expected_launches(torch.float32, unrolled_forwards,
+                                         2 * SUBJECTS_PER_REQUEST), by_shape
+    same = all(np.array_equal(a, b) for a, b in zip(labels_of(subjects), batched_labels))
+    x = collate_subjects(first, ["X"], device="cuda")["X"]
+    split = split_and_flip(x)
+    probs = [EnsembleFlips(folds[0], "mean", FLIP_DIMS, batched=b)(split) for b in (True, False)]
+    diff = (probs[0] - probs[1]).abs().max().item()
+    print(f"tta f32 unrolled ({unrolled_forwards} forwards x {CONVS_PER_FORWARD} launches at "
+          f"N={2 * SUBJECTS_PER_REQUEST}) against batched: labels equal {same}; fold 0's flip "
+          f"mean, max abs prob diff {diff:.3g} [{card}]", flush=True)
+    assert same
+
+    packed = StandardPredict(sagittal_split=True, image_names=["X"], device_argmax=True)
+    subjects, _ = packed.predict(fold_flip_tta(folds), [copy.deepcopy(s) for s in first])
+    plain, _ = predictor.predict(fold_flip_tta(folds), [copy.deepcopy(s) for s in first])
+    assert all(np.array_equal(a["y_pred"].data, b["y_pred"].data)
+               for a, b in zip(subjects, plain))
+    print("tta f32 device_argmax: the bit-packed fetch gives the plain fetch's answers",
+          flush=True)
+
+    # The first subject through fold 0's flip TTA, on the card and the CPU.
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_fold = fold_models(seed, "cpu")[0]
+    card_flips = EnsembleFlips(folds[0], "majority", FLIP_DIMS, batched=True)
+    cpu_flips = EnsembleFlips(cpu_fold, "majority", FLIP_DIMS, batched=True)
+    t0 = time.perf_counter()
+    members_cpu = cpu_flips._members(split[0::SUBJECTS_PER_REQUEST].cpu())
+    cpu_s = time.perf_counter() - t0
+    members_gpu = [m.cpu() for m in card_flips._members(split[0::SUBJECTS_PER_REQUEST])]
+    compare_cpu("tta f32 fold 0 flips vs CPU port (first subject)", members_gpu, members_cpu,
+                cpu_s, card)
+
+    orient = EnsembleOrientations(folds[0], "majority", batched=True)
+    one = [copy.deepcopy(pool[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (answered, batch), launches, by_shape = launches_counted(
+        lambda: predictor.predict(orient, one))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    assert launches == 6 * CONVS_PER_FORWARD, launches
+    assert by_shape == orientation_launches(torch.float32, 1), by_shape
+    assert tuple(batch["y_pred"].shape) == (1, OUT_CHANNELS, *CROP)
+    invert_predictions(answered)
+    post_process(answered[0]["y_pred"])
+    check_original_grid(answered)
+    print(f"tta f32 EnsembleOrientations (majority, batched; 1 subject, 6 forwards x "
+          f"{CONVS_PER_FORWARD} launches at N={ORIENT_BATCH}): {ms:.3f} ms [{card}]", flush=True)
+    perm = (4, 2, 3)
+    x_perm = split[0::SUBJECTS_PER_REQUEST].permute(0, 1, *perm).contiguous()
+    t0 = time.perf_counter()
+    p_cpu = cpu_fold(x_perm.cpu())
+    cpu_s = time.perf_counter() - t0
+    compare_cpu(f"tta f32 permuted forward {tuple(x_perm.shape[2:])} vs CPU port",
+                [folds[0](x_perm).cpu()], [p_cpu], cpu_s, card)
+
+
+def compare_cpu(name, card_probs, cpu_probs, cpu_s, card):
+    """Probabilities within CPU_PROB_TOL; labels equal where no member's
+    top two probabilities are within CPU_TIE."""
+    diff = max((g - c).abs().max().item() for g, c in zip(card_probs, cpu_probs))
+    tie = torch.zeros_like(cpu_probs[0][:, 0], dtype=torch.bool)
+    differ = torch.zeros_like(tie)
+    for g, c in zip(card_probs, cpu_probs):
+        top2 = torch.topk(c, 2, dim=1).values
+        tie |= (top2[:, 0] - top2[:, 1]) < CPU_TIE
+        differ |= g.argmax(1) != c.argmax(1)
+    bad = (differ & ~tie).sum().item()
+    print(f"{name}: max abs prob diff {diff:.3g} over {len(cpu_probs)} member(s), "
+          f"{differ.sum().item()} labels differ, {bad} of them outside a top-two gap < "
+          f"{CPU_TIE}; CPU took {cpu_s:.1f} s [{card}]", flush=True)
+    assert diff <= CPU_PROB_TOL and bad == 0
+
+
 def train_batch(rng: np.random.Generator, subjects: int):
     """Channel-first X of N(0, 1) values and two-class one-hot labels from
     its first channel, as bench.py makes them."""
@@ -698,6 +1097,23 @@ def train_phase(card, seed, rows):
     return state_dict, batch_cf
 
 
+def tta_totals(rows, card):
+    """The forward kernel's time per TTA request in each dtype (FOLDS
+    forwards of 25 launches at N=TTA_BATCH), beside its plain version's,
+    cuDNN's and the bound."""
+    per_forward = {(*spatial, cin, cout): n for spatial, cin, cout, n in CONV_CLASSES}
+    for dtype, name in DTYPE_NAMES.items():
+        picked = [(row, row["launches"] // TTA_REQUESTS) for row in rows
+                  if row["_key"][0] == str(dtype)]
+        assert all(n == FOLDS * per_forward[row["_key"][2:]] for row, n in picked)
+        total = {key: sum(row[key] * n for row, n in picked)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"per TTA request fwd {name}: kernel {total['ms']:.4f} ms, plain "
+              f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound "
+              f"{total['bound_ms']:.4f} ({sum(n for _, n in picked)} launches at "
+              f"N={TTA_BATCH}) [{card}]", flush=True)
+
+
 def step_totals(rows, card):
     """Each kernel kind's time per train step in each dtype (25 forward, 23
     dX, 25 dW launches), beside its plain version's, cuDNN's and the bound:
@@ -785,14 +1201,18 @@ def main() -> int:
 
     device, half_batch = torch.device("cuda"), 2 * SUBJECTS_PER_REQUEST
     rows = kernel_phase(device, half_batch, args.seed, card)
+    tta_rows = kernel_phase(device, TTA_BATCH, args.seed + 4, card)
+    check_orientation_grids(device, args.seed, card)
     grad_rows = grad_kernel_phase(device, half_batch, args.seed, card)
     slice_phase(card, args.seed, rows)
+    tta_phase(card, args.seed, tta_rows)
     state_dict, batch_cf = train_phase(card, args.seed, grad_rows)
     step_totals(rows + grad_rows, card)
+    tta_totals(tta_rows, card)
     cpu_train_comparison(card, state_dict, batch_cf)
 
     rows = [{key: value for key, value in row.items() if not key.startswith("_")}
-            for row in rows + grad_rows]
+            for row in rows + tta_rows + grad_rows]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,6 @@ An Image is a numpy array (C, W, H, D) + a (4, 4) affine + arbitrary metadata
 (e.g. ``label_values``); a Subject is a dict of images and attributes plus an
 applied-transform history tape. Everything here is host-side numpy; torch
 tensors enter at ``collate_subjects`` and in ``Image.device_mirror``.
-Inverting the history tape (``Subject.apply_inverse_transform``) comes with
-the port of the transforms.
 """
 from __future__ import annotations
 
@@ -346,6 +344,18 @@ class Subject(dict):
 
     def clear_history(self):
         self.history = []
+
+    def apply_inverse_transform(self, warn: bool = True) -> "Subject":
+        """Undo the full history tape (newest first), returning a NEW Subject
+        in the original space with an empty history. The transforms mutate in
+        place, so the inversion runs on a deep copy and this subject is left
+        untouched."""
+        from ..transforms.base import invert_records
+
+        out = copy.deepcopy(self)
+        out = invert_records(out, out.history, warn=warn)
+        out.clear_history()
+        return out
 
     def __repr__(self):
         images = list(self.get_images_dict().keys())

@@ -1,8 +1,9 @@
 """Whole-image prediction, ported from segmentation_pipeline_tpu/prediction.py
-(``StandardPredict`` with the sagittal split-and-flip batching trick).
+(``StandardPredict`` with the sagittal split-and-flip batching trick, and
+``add_evaluation_labels``).
 
 The prediction stays on the device through the model; with ``device_argmax``
-only uint8 label ids come back to the host.
+only the label ids come back to the host, bit-packed (ops/bitpack.py).
 """
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ import torch
 
 from .core.subject import LabelMap, Subject, collate_subjects
 from .device import resolve_device
+from .ops.bitpack import fetch_ids
+from .transforms.base import LabelTransform, apply_inverse_on_new_subject
 from .transforms.spatial import EnforceConsistentAffine
+from .transforms.structural import ConcatenateImages, CopyProperty, RenameProperty
 
 
 def split_and_flip(x: torch.Tensor) -> torch.Tensor:
@@ -42,6 +46,11 @@ class Predictor(ABC):
         ...
 
 
+# the transform types whose inverses produce evaluation-space labels
+EVAL_LABEL_TYPES = (LabelTransform, CopyProperty, RenameProperty,
+                    ConcatenateImages)
+
+
 def idx_dtype_for(n_channels: int) -> torch.dtype:
     """Smallest integer dtype holding channel indices (device-argmax fetch)."""
     return torch.uint8 if n_channels <= 255 else torch.int32
@@ -52,6 +61,15 @@ def ids_to_onehot(ids: np.ndarray, n_channels: int, channel_axis: int = 0
     """Expand argmax ids back to the float32 one-hot the framework's y_pred
     consumers expect. Host-side: a memory-bandwidth op, never a transfer."""
     return np.moveaxis(np.eye(n_channels, dtype=np.float32)[ids], -1, channel_axis)
+
+
+def _fetch_ids_host(ids_dev: torch.Tensor, n_channels: int) -> np.ndarray:
+    """Fetch device argmax ids to the host: bit-packed (ceil(log2 C) bits per
+    voxel) when C fits uint8, a plain copy otherwise. The one fetch policy of
+    every device_argmax path."""
+    if n_channels <= 255:
+        return fetch_ids(ids_dev, n_channels)
+    return ids_dev.cpu().numpy()
 
 
 def _attach_prediction(subject: Subject, y_pred: np.ndarray, label_attributes):
@@ -94,7 +112,7 @@ class StandardPredict(Predictor):
         n_ch = y_pred.shape[1]
         if self.device_argmax and n_ch > 1:
             ids = torch.argmax(y_pred, dim=1).to(idx_dtype_for(n_ch))
-            y_np = ids_to_onehot(ids.cpu().numpy(), n_ch, channel_axis=1)
+            y_np = ids_to_onehot(_fetch_ids_host(ids, n_ch), n_ch, channel_axis=1)
         else:
             # C == 1: the single channel IS the mask/probability — argmax
             # would collapse it to all-zero ids; fall back to the full fetch
@@ -103,3 +121,24 @@ class StandardPredict(Predictor):
         for i, subject in enumerate(subjects):
             out_subjects.append(_attach_prediction(subject, y_np[i], label_attributes))
         return out_subjects, batch
+
+
+def add_evaluation_labels(subjects: Sequence[Subject]):
+    """Invert the label-only part of each subject's history on 'y_pred' and
+    'y', and attach 'y_pred_eval' and 'y_eval'."""
+    label_types = list(EVAL_LABEL_TYPES)
+    for subject in subjects:
+        records = subject.get_composed_history()
+
+        if "y_pred" in subject:
+            # deepcopy: the transforms mutate in place
+            pred_subject = Subject({"y": copy.deepcopy(subject["y_pred"])})
+            out = apply_inverse_on_new_subject(records, pred_subject,
+                                               include_types=label_types, warn=False)
+            subject.add_image(out.get_first_image(), "y_pred_eval")
+
+        if "y" in subject:
+            target_subject = Subject({"y": copy.deepcopy(subject["y"])})
+            out = apply_inverse_on_new_subject(records, target_subject,
+                                               include_types=label_types, warn=False)
+            subject.add_image(out.get_first_image(), "y_eval")

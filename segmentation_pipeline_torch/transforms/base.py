@@ -1,19 +1,21 @@
-"""Transform base and the applied-transform tape, ported from
-segmentation_pipeline_tpu/transforms/base.py (``Transform``,
-``TransformRecord`` and the host RNG they draw from).
+"""Transform engine and the invertible applied-transform tape, ported from
+segmentation_pipeline_tpu/transforms/base.py.
 
 A transform application mutates the subject in place and records its
-reproducible applied args on the subject's history tape, so that the tape can
-be inverted once the invertible transforms are ported.
+reproducible applied args on the subject's history tape; inversion replays
+concrete inverse transforms built from those args, newest first
+(``invert_records``). Host-side numpy, as in the JAX package.
 """
 from __future__ import annotations
 
+import copy
 import threading as _threading
-from typing import Any, Dict, List, Optional
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from ..core.subject import Image, Subject
+from ..core.subject import Image, LabelMap, Subject
 from ..utils.misc import as_list, auto_str
 
 # Each thread gets its own Generator spawned from a shared SeedSequence so
@@ -119,3 +121,191 @@ class Transform:
 
     def __repr__(self):
         return auto_str(self)
+
+
+# Marker base classes of the torchio taxonomy that the tape is filtered on
+# (EVAL_LABEL_TYPES in prediction.py).
+class SpatialTransform(Transform):
+    pass
+
+
+class IntensityTransform(Transform):
+    """Applies to scalar images only."""
+
+    def get_images_dict(self, subject, intensity_only: bool = True):
+        return super().get_images_dict(subject, intensity_only=True)
+
+
+class LabelTransform(Transform):
+    """Label-map manipulation; part of the evaluation-space inverse set.
+    Applies only to LabelMap images."""
+
+    def get_images_dict(self, subject, intensity_only: bool = False):
+        return {name: image
+                for name, image in super().get_images_dict(subject, intensity_only).items()
+                if isinstance(image, LabelMap)}
+
+
+class RandomTransform(Transform):
+    @property
+    def rng(self) -> np.random.Generator:
+        return get_rng()
+
+
+class Compose(Transform):
+    """Sequential composition. Child applications are recorded individually on
+    the tape (the tape is flat), so filtering and inversion work uniformly."""
+
+    def __init__(self, transforms: Sequence[Transform], **kwargs):
+        super().__init__(**kwargs)
+        self.transforms = list(transforms)
+
+    def __iter__(self):
+        return iter(self.transforms)
+
+    def __call__(self, subject, record: bool = True):
+        if isinstance(subject, (list, tuple)):
+            return [self(s, record=record) for s in subject]
+        if self.p < 1.0 and get_rng().random() > self.p:
+            return subject
+        for t in self.transforms:
+            if self.exclude is not None:
+                t = _with_extra_exclude(t, self.exclude)
+            subject = t(subject, record=record)
+        return subject
+
+    def apply_transform(self, subject):  # pragma: no cover - __call__ overridden
+        raise RuntimeError("Compose dispatches via __call__")
+
+
+def _with_extra_exclude(t: Transform, extra: List[str]) -> Transform:
+    """A shallow copy of ``t`` that also excludes a Compose-level exclude
+    list."""
+    if not extra:
+        return t
+    t2 = copy.copy(t)
+    t2.exclude = list(set((t.exclude or []) + list(extra)))
+    return t2
+
+
+class OneOf(Transform):
+    """Probabilistic choice between transforms (tio.OneOf semantics)."""
+
+    def __init__(self, transforms: Union[Dict[Transform, float], Sequence[Transform]], **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(transforms, dict):
+            self.transforms = list(transforms.keys())
+            weights = np.array(list(transforms.values()), dtype=np.float64)
+        else:
+            self.transforms = list(transforms)
+            weights = np.ones(len(self.transforms), dtype=np.float64)
+        self.weights = weights / weights.sum()
+
+    def __call__(self, subject, record: bool = True):
+        if isinstance(subject, (list, tuple)):
+            return [self(s, record=record) for s in subject]
+        if self.p < 1.0 and get_rng().random() > self.p:
+            return subject
+        idx = int(get_rng().choice(len(self.transforms), p=self.weights))
+        return self.transforms[idx](subject, record=record)
+
+    def apply_transform(self, subject):  # pragma: no cover
+        raise RuntimeError("OneOf dispatches via __call__")
+
+
+# ---------------------------------------------------------------------------
+# History-tape operations
+# ---------------------------------------------------------------------------
+
+def filter_records(
+    records: Sequence[TransformRecord],
+    include_types: Sequence[type] = None,
+    exclude_types: Sequence[type] = None,
+) -> List[TransformRecord]:
+    """Filter a flat history tape by transform type."""
+    out = []
+    for rec in records:
+        t = rec.transform
+        if include_types is not None and not any(isinstance(t, typ) for typ in include_types):
+            continue
+        if exclude_types is not None and any(isinstance(t, typ) for typ in exclude_types):
+            continue
+        out.append(rec)
+    return out
+
+
+def filter_transform(
+    transform: Transform,
+    include_types: Sequence[type] = None,
+    exclude_types: Sequence[type] = None,
+) -> Transform:
+    """Recursively filter a Compose pipeline by transform type, inside
+    OneOf choices too (their weights renormalized)."""
+    def _keep(t):
+        if include_types is not None and not any(isinstance(t, typ) for typ in include_types):
+            return False
+        if exclude_types is not None and any(isinstance(t, typ) for typ in exclude_types):
+            return False
+        return True
+
+    def _copy_meta(out):
+        out.p = transform.p
+        out.include = transform.include
+        out.exclude = transform.exclude
+        return out
+
+    if isinstance(transform, Compose):
+        kept = []
+        for t in transform:
+            if isinstance(t, (Compose, OneOf)):
+                sub = filter_transform(t, include_types, exclude_types)
+                if not isinstance(sub, (Compose, OneOf)) or sub.transforms:
+                    kept.append(sub)
+                continue
+            if _keep(t):
+                kept.append(t)
+        return _copy_meta(Compose(kept))
+    if isinstance(transform, OneOf):
+        pairs = []
+        for t, w in zip(transform.transforms, transform.weights):
+            if isinstance(t, (Compose, OneOf)):
+                sub = filter_transform(t, include_types, exclude_types)
+                if not isinstance(sub, (Compose, OneOf)) or sub.transforms:
+                    pairs.append((sub, float(w)))
+                continue
+            if _keep(t):
+                pairs.append((t, float(w)))
+        if not pairs:
+            return _copy_meta(Compose([]))
+        return _copy_meta(OneOf(dict(pairs)))
+    return transform
+
+
+def invert_records(
+    subject: Subject,
+    records: Sequence[TransformRecord],
+    warn: bool = True,
+) -> Subject:
+    """Undo a history tape (newest first) on ``subject``; non-invertible
+    entries are skipped (torchio ``Compose.inverse(warn=False)``)."""
+    for rec in reversed(list(records)):
+        t = rec.transform
+        if not t.is_invertible():
+            if warn:
+                warnings.warn(f"Skipping non-invertible transform {type(t).__name__}")
+            continue
+        inv = t.inverse(rec.args)
+        subject = inv(subject, record=False)
+    return subject
+
+
+def apply_inverse_on_new_subject(
+    source_records: Sequence[TransformRecord],
+    subject: Subject,
+    include_types: Sequence[type] = None,
+    warn: bool = False,
+) -> Subject:
+    """Build the (optionally type-filtered) inverse pipeline from another
+    subject's tape and run it on ``subject`` (add_evaluation_labels)."""
+    records = filter_records(source_records, include_types=include_types)
+    return invert_records(subject, records, warn=warn)

@@ -1,8 +1,186 @@
-"""Spatial transforms, ported from segmentation_pipeline_tpu/transforms/spatial.py
-(so far only ``EnforceConsistentAffine``, which prediction applies)."""
+"""Spatial transforms, ported from segmentation_pipeline_tpu/transforms/spatial.py:
+``Crop``, ``Pad``, ``CropOrPad`` (with mask centring, and its exact inverse
+``_UndoCropOrPad``) and ``EnforceConsistentAffine``. Every transform keeps
+the affines, so world geometry, and with it the inversion back to the
+original scanner grid, stays exact. Host-side numpy, as in the JAX package.
+"""
 from __future__ import annotations
 
-from .base import Transform
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .base import SpatialTransform, Transform
+
+TypeBounds = Tuple[int, int, int, int, int, int]  # w_ini, w_fin, h_ini, h_fin, d_ini, d_fin
+
+
+def _parse_bounds(bounds) -> TypeBounds:
+    if isinstance(bounds, int):
+        return (bounds,) * 6
+    bounds = tuple(int(b) for b in bounds)
+    if len(bounds) == 3:
+        return (bounds[0], bounds[0], bounds[1], bounds[1], bounds[2], bounds[2])
+    if len(bounds) == 6:
+        return bounds
+    raise ValueError(f"Bounds must be an int, 3-tuple or 6-tuple, got {bounds}")
+
+
+def _pad_value(data: np.ndarray, mode) -> float:
+    if mode is None:
+        return 0.0
+    if isinstance(mode, (int, float)):
+        return float(mode)
+    if mode == "minimum":
+        return float(data.min())
+    if mode == "mean":
+        return float(data.mean())
+    if mode == "maximum":
+        return float(data.max())
+    if mode == "otsu":
+        return float(_otsu_background_value(data))
+    raise ValueError(f"Unsupported padding mode {mode!r}")
+
+
+def _otsu_background_value(data: np.ndarray) -> float:
+    """Mean of voxels below the Otsu threshold (torchio's 'otsu' pad value)."""
+    x = np.asarray(data, dtype=np.float64).ravel()
+    hist, edges = np.histogram(x, bins=256)
+    centers = (edges[:-1] + edges[1:]) / 2
+    w0 = np.cumsum(hist)
+    w1 = w0[-1] - w0
+    m0 = np.cumsum(hist * centers)
+    mu0 = np.divide(m0, w0, out=np.zeros_like(m0), where=w0 > 0)
+    mu1 = np.divide(m0[-1] - m0, w1, out=np.zeros_like(m0), where=w1 > 0)
+    between = w0 * w1 * (mu0 - mu1) ** 2
+    thresh = centers[int(np.argmax(between))]
+    below = x[x < thresh]
+    return below.mean() if below.size else x.min()
+
+
+class Crop(SpatialTransform):
+    """Crop by (w_ini, w_fin, h_ini, h_fin, d_ini, d_fin); inverse pads zeros."""
+
+    def __init__(self, cropping, **kwargs):
+        super().__init__(**kwargs)
+        self.cropping = _parse_bounds(cropping)
+
+    def apply_transform(self, subject):
+        w0, w1, h0, h1, d0, d1 = self.cropping
+        for image in self.get_images(subject):
+            data = np.asarray(image.data)
+            _, W, H, D = data.shape
+            image.set_data(data[:, w0:W - w1 or None, h0:H - h1 or None, d0:D - d1 or None])
+            affine = image.affine.copy()
+            affine[:3, 3] = (affine @ np.array([w0, h0, d0, 1.0]))[:3]
+            image.affine = affine
+        return None
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        return Pad(self.cropping, **self._sel())
+
+
+class Pad(SpatialTransform):
+    """Pad by bounds with a padding mode; inverse crops."""
+
+    def __init__(self, padding, padding_mode=0, **kwargs):
+        super().__init__(**kwargs)
+        self.padding = _parse_bounds(padding)
+        self.padding_mode = padding_mode
+
+    def apply_transform(self, subject):
+        w0, w1, h0, h1, d0, d1 = self.padding
+        for image in self.get_images(subject):
+            data = np.asarray(image.data)
+            if self.padding_mode == "edge":
+                padded = np.pad(data, ((0, 0), (w0, w1), (h0, h1), (d0, d1)), mode="edge")
+            else:
+                value = _pad_value(data, self.padding_mode)
+                if np.issubdtype(data.dtype, np.integer):
+                    value = int(round(value))
+                padded = np.pad(data, ((0, 0), (w0, w1), (h0, h1), (d0, d1)),
+                                mode="constant", constant_values=value)
+            image.set_data(padded)
+            affine = image.affine.copy()
+            affine[:3, 3] = (affine @ np.array([-w0, -h0, -d0, 1.0]))[:3]
+            image.affine = affine
+        return None
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        return Crop(self.padding, **self._sel())
+
+
+class CropOrPad(SpatialTransform):
+    """Crop and/or pad to a target shape, optionally centred on a mask's
+    bounding box (tio.CropOrPad with mask_name). The applied crop and pad
+    bounds are recorded per subject, so the inverse is exact for any input
+    shape."""
+
+    def __init__(self, target_shape, padding_mode=0, mask_name: Optional[str] = None, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(target_shape, int):
+            target_shape = (target_shape,) * 3
+        self.target_shape = tuple(int(s) for s in target_shape)
+        self.padding_mode = padding_mode
+        self.mask_name = mask_name
+
+    def _center(self, subject, spatial_shape) -> Tuple[float, float, float]:
+        if self.mask_name is not None and self.mask_name in subject:
+            mask = np.asarray(subject[self.mask_name].data)[0] > 0
+            if mask.any():
+                coords = np.where(mask)
+                return tuple((c.min() + c.max()) / 2 for c in coords)
+        return tuple((s - 1) / 2 for s in spatial_shape)
+
+    def apply_transform(self, subject):
+        spatial_shape = subject.get_first_image().spatial_shape
+        center = self._center(subject, spatial_shape)
+
+        crop = [0] * 6
+        pad = [0] * 6
+        for axis in range(3):
+            size = spatial_shape[axis]
+            target = self.target_shape[axis]
+            # the window [lo, hi) of length target centred on center
+            lo = int(round(center[axis] - target / 2 + 0.5))
+            hi = lo + target
+            crop[2 * axis], crop[2 * axis + 1] = max(lo, 0), max(size - hi, 0)
+            pad[2 * axis], pad[2 * axis + 1] = max(-lo, 0), max(hi - size, 0)
+
+        if any(crop):
+            Crop(tuple(crop), **self._selection_kwargs())(subject, record=False)
+        if any(pad):
+            Pad(tuple(pad), padding_mode=self.padding_mode, **self._selection_kwargs())(
+                subject, record=False)
+        return {"crop": tuple(crop), "pad": tuple(pad)}
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        args = args or {}
+        return _UndoCropOrPad(args.get("crop", (0,) * 6), args.get("pad", (0,) * 6),
+                              **self._sel())
+
+
+class _UndoCropOrPad(SpatialTransform):
+    def __init__(self, crop, pad, **kwargs):
+        super().__init__(**kwargs)
+        self.crop = crop
+        self.pad = pad
+
+    def apply_transform(self, subject):
+        if any(self.pad):
+            Crop(self.pad, **self._selection_kwargs())(subject, record=False)
+        if any(self.crop):
+            Pad(self.crop, **self._selection_kwargs())(subject, record=False)
+        return None
 
 
 class EnforceConsistentAffine(Transform):
