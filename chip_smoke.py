@@ -61,7 +61,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    subject (6 forwards of 25 at N=16), with one permuted forward against
    the CPU. Every answer ends on the 112x104x20 grid with labels in
    {0, 1, 2}.
-7. train: the dmri_hippo train step, as the trainer calls it:
+7. msseg2: msseg2 serving, as research/msseg2/competition/ms_inference.py
+   runs it (non-fused) and as the msseg2 trainer's validation sweep
+   predicts: the forward kernel at the 15 classes of
+   ModularUNet(2 -> 2, filters (40, 40, 80, 80, 120, 120), depth 6) at a
+   96^3 patch, N=1, in float32 and bfloat16, as in phase 3; untimed, the
+   class 32x96^3 80->40 (2.26e9 input elements, past 2**31) in both types,
+   and the 15 classes at the validation sweep's N=12 in both types.
+   Then two raw subjects of 256x256x144 at (0.9375, 0.9375, 1.2) mm (two
+   FLAIRs and a brain mask) through msseg2's default pipeline (about
+   150x182x146 in model space), the network with random weights from
+   --seed, PatchPredict(patch_batch_size=1, patch 96, overlap 48, edge,
+   device_argmax) and the way back: inversion, remove_holes(64),
+   remove_small_components(3), resample onto the raw grid. One untimed and
+   3 timed requests in float32, then in bfloat16 (27 forwards of 34
+   launches at N=1 each), the host's pipeline and way back timed apart;
+   1 + 2 validation sweeps (PatchPredict(patch_batch_size=32, overlap 12)
+   over both subjects, one forward of N=12 each, no halving) per type.
+   In float32 also: device_argmax against the full fetch, batch 32 against
+   batch 1, one 96^3 patch against the port on the CPU, and the port's
+   strided and transposed convs with cuDNN's TF32 switched on for the
+   process against float64 (beside a bare F call). One profiled request
+   per type.
+8. train: the dmri_hippo train step, as the trainer calls it:
    make_train_step(sagittal_split=True) with HybridLogisticDiceLoss and
    Adam(lr=2e-4) on SegModel(NestedResUNet(3 -> 2, filters=40,
    dropout_p=0.2)), random flax-layout weights from --seed, a batch of 4
@@ -75,7 +97,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Two more steps in float32 and two in bfloat16 run under torch.profiler,
    the first of each as its warm-up, for the device time by kernel and the
    shares of forward + dX and of dW.
-8. card against CPU: one float32 train step at dropout 0, the same weights
+9. card against CPU: one float32 train step at dropout 0, the same weights
    and the first subject, on the card and on the port on the CPU: the loss
    and every parameter's gradient, beside how far a 1e-7 change of the
    input moves the CPU's own gradients.
@@ -103,21 +125,25 @@ import torch.nn.functional as F
 
 import segmentation_pipeline_torch as tsp
 from segmentation_pipeline_torch import (Adam, Compose, ConcatenateImages, CropOrPad,
-                                         CustomOneHot, CustomRemapLabels, EnsembleFlips,
+                                         CropToMask, CustomOneHot, CustomRemapLabels,
+                                         EnforceConsistentAffine, EnsembleFlips,
                                          EnsembleModels, EnsembleOrientations,
-                                         HybridLogisticDiceLoss, LabelMap, RenameProperty,
-                                         ReplaceNan, RescaleIntensity, ScalarImage, Subject,
-                                         collate_to_device, create_train_state,
+                                         HybridLogisticDiceLoss, LabelMap, MinSizePad,
+                                         PatchPredict, RenameProperty, ReplaceNan,
+                                         RescaleIntensity, ScalarImage, SetDataType, Subject,
+                                         TargetResample, collate_to_device, create_train_state,
                                          invert_records, keep_components, make_train_step,
-                                         remove_holes)
+                                         remove_holes, remove_small_components, resample_array)
 from segmentation_pipeline_torch.core.nifti import read_nifti, write_nifti
-from segmentation_pipeline_torch.models import Conv3d, NestedResUNet, flax_to_state_dict
-from segmentation_pipeline_torch.ops import build, conv3x3
+from segmentation_pipeline_torch.models import (BlurConv3d, BlurConvTranspose3d, Conv3d,
+                                                ModularUNet, NestedResUNet, flax_to_state_dict)
+from segmentation_pipeline_torch.ops import build, conv3x3, convolution
 from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_dw,
                                                      conv3x3_s1p1_dw_plain, conv3x3_s1p1_dx,
                                                      conv3x3_s1p1_dx_plain, conv3x3_s1p1_plain,
                                                      reset_launch_counts)
 from segmentation_pipeline_torch.core.subject import collate_subjects
+from segmentation_pipeline_torch.ops.sliding_window import grid_locations
 from segmentation_pipeline_torch.prediction import (StandardPredict, reverse_split_and_flip,
                                                     split_and_flip)
 from segmentation_pipeline_torch.training.model import SegModel
@@ -259,13 +285,13 @@ def check_exact(name, kernel, plain, *inputs):
     print(f"kernel {name}: bit-exact against the plain version on integer inputs", flush=True)
 
 
-def kernel_phase(device, batch: int, seed: int, card: str):
+def kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES):
     """Each conv class in f32 and bf16: check against the plain version and
     time kernel, plain version and F.conv3d."""
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for spatial, cin, cout, _ in CONV_CLASSES:
+        for spatial, cin, cout, _ in classes:
             x = torch.rand((batch, *spatial, cin), generator=gen, device=device) * 2 - 1
             bound = 1 / np.sqrt(27 * cin)
             k = (torch.rand((3, 3, 3, cin, cout), generator=gen, device=device) * 2 - 1) * bound
@@ -970,6 +996,435 @@ def compare_cpu(name, card_probs, cpu_probs, cpu_s, card):
     assert diff <= CPU_PROB_TOL and bad == 0
 
 
+# msseg2 serving (research/msseg2/msseg2.py, research/msseg2/competition/
+# ms_inference.py): the depth-6 BlurConv ModularUNet on 96^3 patches.
+MS_TIMEPOINTS = ("flair_time01", "flair_time02")
+MS_FILTERS = (40, 40, 80, 80, 120, 120)
+MS_PATCH = 96
+
+
+def msseg2_network(filters=MS_FILTERS):
+    """msseg2's model (research/msseg2/msseg2.py:163-176): ModularUNet(2 -> 2,
+    depth len(filters)), residual blocks, BlurConv3d down-samplers and
+    BlurConvTranspose3d up-samplers."""
+    return ModularUNet(2, 2, filters=list(filters), depth=len(filters),
+                       block_params={"residual": True},
+                       downsample_class=BlurConv3d,
+                       downsample_params={"kernel_size": 3, "stride": 2, "padding": 1},
+                       upsample_class=BlurConvTranspose3d,
+                       upsample_params={"kernel_size": 3, "stride": 2, "padding": 1,
+                                        "output_padding": 0},
+                       remat=True)
+
+
+def msseg2_state(rng: np.random.Generator, module):
+    """Random weights for ``module`` in the port's state-dict layout: torch's
+    conv init for every conv kernel, small nonzero biases, BatchNorm scales
+    and statistics off their init values (positive, non-unit variances)."""
+    out = {}
+    for key, value in module.state_dict().items():
+        shape, leaf = tuple(value.shape), key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            out[key] = torch.tensor(0)
+            continue
+        if value.dim() == 5:
+            bound = 1 / np.sqrt(np.prod(shape[1:]))
+            v = rng.uniform(-bound, bound, shape)
+        elif leaf == "running_var":
+            v = rng.uniform(0.1, 0.2, shape)
+        elif leaf == "running_mean":
+            v = rng.normal(0, 0.05, shape)
+        elif leaf == "weight":
+            v = rng.uniform(0.8, 1.2, shape)
+        else:
+            v = rng.normal(0, 0.1, shape)
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+def msseg2_model(seed, device):
+    module = msseg2_network()
+    state = msseg2_state(np.random.default_rng(seed), module)
+    model = SegModel(module, device=device)
+    model.load_state_dict(state)
+    return model
+
+
+def msseg2_pipeline(patch_size):
+    """msseg2's ``default`` transforms, built from the port's transforms with
+    the config's own arguments (research/msseg2/msseg2.py:79-117,
+    ``build_pipelines(patch_size)["default"]``)."""
+    normalize_geometry = Compose([
+        SetDataType(np.float32),
+        EnforceConsistentAffine(source_image_name="flair_time01"),
+        TargetResample(target_spacing=1, tolerance=0.11),
+        CropToMask("brain_mask"),
+        MinSizePad(patch_size),
+    ])
+    stage_model_io = Compose([
+        RescaleIntensity((-1, 1.0), (0.05, 99.5)),
+        ConcatenateImages(image_names=list(MS_TIMEPOINTS), image_channels=[1, 1],
+                          new_image_name="X"),
+        RenameProperty(old_name="ground_truth", new_name="y"),
+        CustomOneHot(include="y"),
+    ])
+    return Compose([normalize_geometry, stage_model_io])
+
+
+def msseg2_volumes(rng: np.random.Generator, grid, spacing, semi_axes_mm):
+    """One raw msseg2 subject on the scanner grid ``grid`` (W, H, D) of
+    ``spacing`` mm: the brain mask (an ellipsoid of ``semi_axes_mm`` around
+    the centre), two FLAIRs (tissue brighter than the background, with noise
+    and a few bright lesions, more of them in the second) and an affine whose
+    first axis is negative."""
+    centre = [(n - 1) / 2 for n in grid]
+    axes = np.ogrid[tuple(slice(0, n) for n in grid)]
+    r2 = sum(((a - c) * s / r) ** 2 for a, c, s, r in zip(axes, centre, spacing, semi_axes_mm))
+    brain = r2 <= 1.0
+    inside = np.argwhere(brain)
+    out = {"brain_mask": brain[None].astype(np.int32)}
+    for t, name in enumerate(MS_TIMEPOINTS):
+        flair = np.where(brain, 1.0, 0.1).astype(np.float32)
+        flair += rng.normal(0, 0.05, grid).astype(np.float32)
+        for w, h, d in inside[rng.choice(len(inside), 4 + 2 * t, replace=False)]:
+            flair[max(w - 2, 0):w + 3, max(h - 2, 0):h + 3, max(d - 1, 0):d + 2] += 0.8
+        out[name] = flair[None]
+    affine = np.diag([-spacing[0], spacing[1], spacing[2], 1.0])
+    affine[:3, 3] = [spacing[0] * grid[0] / 2, -spacing[1] * grid[1] / 2,
+                     -spacing[2] * grid[2] / 2]
+    return out, affine
+
+
+def msseg2_subject(pkg, volumes, affine, name):
+    """A raw Subject of ``pkg`` (the port, or any package with the same data
+    model) holding copies of ``volumes``, as msseg2's loaders make it."""
+    s = pkg.Subject(name=name)
+    for key in MS_TIMEPOINTS:
+        s[key] = pkg.ScalarImage(tensor=volumes[key].copy(), affine=affine)
+    s["brain_mask"] = pkg.LabelMap(tensor=volumes["brain_mask"].copy(), affine=affine,
+                                   label_values={"brain": 1})
+    return s
+
+
+def competition_predictor(device_argmax, device=None):
+    """research/msseg2/competition/ms_inference.py:74-76's predictor (an
+    overlap of 48, half the patch)."""
+    return PatchPredict(patch_batch_size=1, patch_size=MS_PATCH, patch_overlap=MS_PATCH // 2,
+                        padding_mode="edge", overlap_mode="average", image_names=["X"],
+                        device_argmax=device_argmax, device=device)
+
+
+def validation_predictor():
+    """The msseg2 trainer's validation predictor
+    (research/msseg2/msseg2.py:213-219)."""
+    return PatchPredict(patch_batch_size=32, patch_size=MS_PATCH,
+                        patch_overlap=MS_PATCH // 8, padding_mode=None,
+                        overlap_mode="average", image_names=["X"])
+
+
+# the competition's cleanup (ms_inference.py:27)
+MS_CLEANUP = (("remove_holes", 64), ("remove_small_components", 3))
+
+
+def ms_to_raw_grid(subject, raw_subject):
+    """ms_inference.inference's steps after the prediction, on its non-fused
+    branch (research/msseg2/competition/ms_inference.py:101-146): invert the
+    tape on y_pred, argmax, remove_holes(64), remove_small_components(3),
+    resample (order 0) onto the raw first image's grid, int32. Returns the
+    label map on the raw grid and the cleanup's report."""
+    pred_subject = Subject({"y": subject["y_pred"]})
+    pred_subject = invert_records(pred_subject, subject.get_composed_history(), warn=False)
+    output_label = pred_subject.get_first_image()
+    data = np.asarray(output_label.data)
+    label_data = (np.argmax(data, axis=0) if data.shape[0] > 1 else data[0]).astype(np.int32)
+    report = []
+    for op, arg in MS_CLEANUP:
+        cleanup = remove_holes if op == "remove_holes" else remove_small_components
+        label_data, removed = cleanup(label_data, arg)
+        report.append(removed)
+    output_label.set_data(label_data[None].astype(np.int32))
+    target_image = raw_subject.get_first_image()
+    data = resample_array(np.asarray(output_label.data).astype(np.float32), output_label.affine,
+                          target_image.affine, target_image.spatial_shape, order=0)
+    output_label.set_data(np.rint(data).astype(np.int32))
+    output_label.affine = target_image.affine.copy()
+    if output_label.spatial_shape != target_image.spatial_shape:
+        raise RuntimeError("Segmentation shape and original image shape do not match.")
+    return output_label, report
+
+
+def ms_inference(subject, raw_subject, model, predictor):
+    """Predict one transformed subject, then bring its mask back to the raw
+    grid: ms_inference.inference (:72-146) for one subject, non-fused."""
+    [subject], _ = predictor.predict(model, [subject])
+    return ms_to_raw_grid(subject, raw_subject)
+
+
+# The msseg2 phase: a raw subject of 256x256x144 at (0.9375, 0.9375, 1.2) mm,
+# which TargetResample(1, 0.11) takes to 256x256x192 at (0.9375, 0.9375,
+# 0.9), with a brain of (70, 85, 65.5) mm semi-axes: about 150x182x146 in
+# model space, 27 patches for the competition predictor (3 per axis, the
+# last snapped to the boundary), 12 for the validation one.
+MS_RAW_GRID = (256, 256, 144)
+MS_RAW_SPACING = (0.9375, 0.9375, 1.2)
+MS_SEMI_AXES_MM = (70.0, 85.0, 65.5)
+# ModularUNet(2 -> 2, MS_FILTERS) on a 96^3 patch: ((W, H, D), Cin, Cout,
+# launches per forward) of its 3x3x3 convs.
+MS_CONV_CLASSES = [
+    ((96,) * 3, 2, 40, 2), ((96,) * 3, 40, 40, 2), ((96,) * 3, 80, 40, 2),
+    ((96,) * 3, 40, 2, 1),
+    ((48,) * 3, 40, 40, 4), ((48,) * 3, 120, 40, 2),
+    ((24,) * 3, 40, 80, 2), ((24,) * 3, 80, 80, 2), ((24,) * 3, 160, 80, 2),
+    ((12,) * 3, 80, 80, 4), ((12,) * 3, 200, 80, 2),
+    ((6,) * 3, 80, 120, 2), ((6,) * 3, 120, 120, 2), ((6,) * 3, 240, 120, 2),
+    ((3,) * 3, 120, 120, 3),
+]
+MS_CONVS_PER_FORWARD = 34
+MS_REQUESTS, MS_SWEEPS = 3, 2
+# The validation batch at which one activation passes 2**31 elements:
+# up_block_0's input, 32 x 96^3 x 80.
+MS_LARGE_BATCH, MS_LARGE_CLASSES = 32, [((96,) * 3, 80, 40, 1)]
+
+
+def check_classes(device, seed, card, n, classes):
+    """The forward kernel at batch ``n`` at each class of ``classes``,
+    untimed, in f32 and bf16: against its plain version on random inputs
+    and bit for bit on small integers."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        for spatial, cin, cout, _ in classes:
+            name = (f"conv3x3_s1p1_{DTYPE_NAMES[dtype]} {n}x{'x'.join(map(str, spatial))} "
+                    f"{cin}->{cout}")
+            x = (torch.rand((n, *spatial, cin), generator=gen, device=device) * 2 - 1).to(dtype)
+            k = ((torch.rand((3, 3, 3, cin, cout), generator=gen, device=device) * 2 - 1)
+                 / np.sqrt(27 * cin)).to(dtype)
+            out = conv3x3_s1p1(x, k)
+            ref = conv3x3_s1p1_plain(x, k).float()
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            del out, ref
+            if not err <= KERNEL_TOL[dtype] * scale:
+                raise AssertionError(f"{name}: max abs err {err} > {KERNEL_TOL[dtype]} * {scale}")
+            print(f"kernel {name} ({x.numel()} input elements, untimed): err {err:.3g} "
+                  f"(max|ref| {scale:.3g}) [{card}]", flush=True)
+            del x
+            x = torch.randint(-INT_MAX, INT_MAX + 1, (n, *spatial, cin), generator=gen,
+                              device=device, dtype=torch.int8).to(dtype)
+            k = torch.randint(-INT_MAX, INT_MAX + 1, (3, 3, 3, cin, cout), generator=gen,
+                              device=device, dtype=torch.int8).to(dtype)
+            check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain, x, k)
+            del x, k
+            torch.cuda.empty_cache()
+
+
+def ms_expected_launches(dtype, forwards, batch):
+    return Counter({(str(dtype), batch, *spatial, cin, cout): n * forwards
+                    for spatial, cin, cout, n in MS_CONV_CLASSES})
+
+
+def ms_requests(model, predictor, raws, requests):
+    """Answer ``requests`` competition requests, each one raw subject from
+    ``raws`` through the default pipeline, the prediction and the way back
+    to the raw grid. Times in ms on the host clock (the request ends in a
+    synchronize); answers checked on the raw grid."""
+    pipeline = msseg2_pipeline(MS_PATCH)
+    times = {"pipeline": [], "request": [], "back to the raw grid": []}
+    answers = []
+    for r in range(requests):
+        raw = raws[r % len(raws)]
+        t0 = time.perf_counter()
+        subject = pipeline(copy.deepcopy(raw))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        [subject], _ = predictor.predict(model, [subject])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        label, report = ms_to_raw_grid(subject, raw)
+        t3 = time.perf_counter()
+        for key, (a, b) in zip(times, ((t0, t1), (t1, t2), (t2, t3))):
+            times[key].append((b - a) * 1e3)
+        first = raw.get_first_image()
+        assert label.data.shape == (1, *first.spatial_shape) and label.data.dtype == np.int32
+        assert set(np.unique(label.data)) <= {0, 1}, np.unique(label.data)
+        assert np.array_equal(label.affine, first.affine)
+        answers.append((label, report))
+    return times, answers
+
+
+def msseg2_phase(card, seed, rows):
+    """msseg2 serving on the card, as research/msseg2/competition/
+    ms_inference.py runs it (non-fused) and as the trainer's validation sweep
+    predicts: raw FLAIR pairs of 256x256x144 through the default pipeline,
+    PatchPredict on the depth-6 BlurConv ModularUNet, the inversion, the
+    cleanup and the resample back; f32, then bf16. Fills the launches of the
+    N=1 rows."""
+    rng = np.random.default_rng(seed + 7)
+    raws = [msseg2_subject(tsp, *msseg2_volumes(rng, MS_RAW_GRID, MS_RAW_SPACING,
+                                                MS_SEMI_AXES_MM), f"ms-{i}") for i in range(2)]
+    t0 = time.perf_counter()
+    subjects = [msseg2_pipeline(MS_PATCH)(copy.deepcopy(r)) for r in raws]
+    pipeline_ms = (time.perf_counter() - t0) * 1e3 / len(raws)
+    shape = subjects[0]["X"].spatial_shape
+    assert all(s["X"].spatial_shape == shape for s in subjects)
+    spacing = subjects[0]["X"].spacing
+    patches = len(grid_locations(shape, (MS_PATCH,) * 3, (MS_PATCH // 2,) * 3))
+    val_patches = len(grid_locations(shape, (MS_PATCH,) * 3, (MS_PATCH // 8,) * 3))
+    print(f"msseg2 subject: raw {'x'.join(map(str, MS_RAW_GRID))} at {MS_RAW_SPACING} mm, "
+          f"model space 2x{'x'.join(map(str, shape))} at "
+          f"({', '.join(f'{v:.4f}' for v in spacing)}) mm; {patches} patches per competition "
+          f"request (overlap {MS_PATCH // 2}), {val_patches} per validation subject (overlap "
+          f"{MS_PATCH // 8}); default "
+          f"pipeline {pipeline_ms:.1f} ms per subject (host)", flush=True)
+    # the validation sweep runs each class at N=val_patches: held there too
+    check_classes(torch.device("cuda"), seed + 9, card, val_patches, MS_CONV_CLASSES)
+
+    model = msseg2_model(seed, "cuda")
+    competition = competition_predictor(device_argmax=True)
+    by_dtype = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = DTYPE_NAMES[dtype]
+        model.compute_dtype = None if dtype == torch.float32 else "bfloat16"
+        # one untimed, uncounted request first (f32: the cold one)
+        t0 = time.perf_counter()
+        ms_requests(model, competition, raws, 1)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        (times, answers), launches, by_shape = launches_counted(
+            lambda: ms_requests(model, competition, raws, MS_REQUESTS))
+        peak = torch.cuda.max_memory_allocated()
+        assert launches == MS_REQUESTS * patches * MS_CONVS_PER_FORWARD, launches
+        assert by_shape == ms_expected_launches(dtype, MS_REQUESTS * patches, 1), by_shape
+        by_dtype[str(dtype)] = by_shape
+        for key, values in times.items():
+            print(f"msseg2 {name} {key}: " + ", ".join(f"{t:.3f}" for t in values) + " ms",
+                  flush=True)
+        med = {key: statistics.median(values) for key, values in times.items()}
+        shares = [float((label.data == 1).mean()) for label, _ in answers]
+        print(f"msseg2 {name} competition request (patch_batch_size=1, overlap "
+              f"{MS_PATCH // 2}, edge, "
+              f"device_argmax): median {med['request']:.3f} ms over {MS_REQUESTS} after an "
+              f"untimed one ({cold_ms:.3f} ms with its host work), {patches} forwards x "
+              f"{MS_CONVS_PER_FORWARD} launches at N=1, max_memory_allocated {peak} bytes; "
+              f"host: default pipeline median {med['pipeline']:.3f} ms, inversion + cleanup + "
+              f"resample back median {med['back to the raw grid']:.3f} ms; lesion share on "
+              f"the raw grid {', '.join(f'{v:.4f}' for v in shares)}; cleanup (holes filled, "
+              f"voxels removed) {[r for _, r in answers]} [{card}]", flush=True)
+        ms_validation_sweeps(card, model, subjects, dtype, val_patches)
+        if dtype == torch.float32:
+            ms_checks(card, seed, model, subjects)
+        profile_request(model, competition, [copy.deepcopy(subjects[0])],
+                        f"msseg2 {name}", card)
+    model.compute_dtype = None
+    for row in rows:
+        row["launches"] = by_dtype[row["_key"][0]][row["_key"]]
+        assert row["launches"] > 0, row["name"]
+
+
+def ms_validation_sweeps(card, model, subjects, dtype, val_patches):
+    """1 + MS_SWEEPS sweeps of the trainer's validation predictor over the
+    subjects: one forward of all their patches each (the batch is not
+    halved), the full probabilities fetched."""
+    name = DTYPE_NAMES[dtype]
+    predictor = validation_predictor()
+    predictor.predict(model, [copy.deepcopy(s) for s in subjects])
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+
+    def sweeps():
+        for _ in range(MS_SWEEPS):
+            group = [copy.deepcopy(s) for s in subjects]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, batch = predictor.predict(model, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            assert batch["y_pred"].shape == (len(subjects), 2, *subjects[0]["X"].spatial_shape)
+            assert np.isfinite(batch["y_pred"]).all()
+
+    _, launches, by_shape = launches_counted(sweeps)
+    peak = torch.cuda.max_memory_allocated()
+    assert predictor._effective_patch_batch == predictor.patch_batch_size, "batch was halved"
+    assert launches == MS_SWEEPS * len(subjects) * MS_CONVS_PER_FORWARD, launches
+    assert by_shape == ms_expected_launches(dtype, MS_SWEEPS * len(subjects), val_patches), \
+        by_shape
+    print(f"msseg2 {name} validation sweep (patch_batch_size=32, overlap {MS_PATCH // 8}, "
+          f"{len(subjects)} subjects, one forward of N={val_patches} each): "
+          + ", ".join(f"{t:.3f}" for t in times) + f" ms, median {statistics.median(times):.3f} "
+          f"ms per sweep after an untimed one, max_memory_allocated {peak} bytes, batch not "
+          f"halved [{card}]", flush=True)
+
+
+def ms_checks(card, seed, model, subjects):
+    """f32 only: a device_argmax request against a full-probability one, the
+    validation batch against batches of 1, one 96^3 patch against the port
+    on the CPU, and cuDNN's TF32 against the port's library convs."""
+    one = subjects[0]
+    [packed], _ = competition_predictor(device_argmax=True).predict(model, [copy.deepcopy(one)])
+    [full], _ = competition_predictor(device_argmax=False).predict(model, [copy.deepcopy(one)])
+    probs = np.asarray(full["y_pred"].data)
+    assert np.array_equal(np.argmax(packed["y_pred"].data, 0), np.argmax(probs, 0))
+    print(f"msseg2 f32 device_argmax: the bit-packed ids give the full fetch's argmax "
+          f"(foreground share {np.argmax(probs, 0).mean():.4f}, probability of class 1 "
+          f"{probs[1].min():.3f}..{probs[1].max():.3f})", flush=True)
+
+    _, batched = validation_predictor().predict(model, [copy.deepcopy(one)])
+    single = validation_predictor()
+    single.patch_batch_size = 1
+    _, unbatched = single.predict(model, [copy.deepcopy(one)])
+    diff = np.abs(batched["y_pred"] - unbatched["y_pred"]).max()
+    print(f"msseg2 f32 validation predictor at batch 32 against batch 1: max abs prob diff "
+          f"{diff:.3g} [{card}]", flush=True)
+    assert diff <= CPU_PROB_TOL
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_model = msseg2_model(seed, "cpu")
+    x = torch.from_numpy(np.ascontiguousarray(one["X"].data[:, :MS_PATCH, :MS_PATCH, :MS_PATCH]))
+    t0 = time.perf_counter()
+    p_cpu = cpu_model(x[None])
+    cpu_s = time.perf_counter() - t0
+    compare_cpu(f"msseg2 f32 {MS_PATCH}^3 patch vs CPU port", [model(x[None]).cpu()], [p_cpu],
+                cpu_s, card)
+
+    xs = torch.from_numpy(np.random.default_rng(seed).normal(size=(2, 48, 48, 48, 40))
+                          .astype(np.float32)).cuda()
+    k = torch.from_numpy((np.random.default_rng(seed + 1).uniform(-1, 1, (4, 4, 4, 40, 40))
+                          / np.sqrt(64 * 40)).astype(np.float32)).cuda()
+    for conv in (convolution.conv3d, convolution.conv_transpose3d):
+        ref = conv(xs.double(), k.double(), stride=2, padding=1)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            port = conv(xs, k, stride=2, padding=1)
+            cf = xs.permute(0, 4, 1, 2, 3)
+            bare = (F.conv3d(cf, k.permute(4, 3, 0, 1, 2), stride=2, padding=1)
+                    if conv is convolution.conv3d else
+                    F.conv_transpose3d(cf, k.permute(3, 4, 0, 1, 2), stride=2, padding=1)
+                    ).permute(0, 2, 3, 4, 1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        scale = ref.abs().max().item()
+        errs = [(t.double() - ref).abs().max().item() / scale for t in (port, bare)]
+        print(f"msseg2 f32 {conv.__name__} with cuDNN's TF32 on for the process: the port's "
+              f"conv within {errs[0]:.3g} of max|ref| of float64, a bare F call "
+              f"{errs[1]:.3g} [{card}]", flush=True)
+        assert errs[0] <= TF32X3_TOL
+
+
+def ms_totals(rows, card):
+    """The forward kernel's time per competition request in each dtype
+    (patches x 34 launches at N=1), beside its plain version's, cuDNN's and
+    the bound."""
+    for dtype, name in DTYPE_NAMES.items():
+        picked = [(row, row["launches"] / MS_REQUESTS) for row in rows
+                  if row["_key"][0] == str(dtype)]
+        total = {key: sum(row[key] * n for row, n in picked)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"per msseg2 request fwd {name}: kernel {total['ms']:.4f} ms, plain "
+              f"{total['plain_ms']:.4f}, cuDNN {total['library_ms']:.4f}, bound "
+              f"{total['bound_ms']:.4f} ({sum(n for _, n in picked):.0f} launches at N=1) "
+              f"[{card}]", flush=True)
+
+
 def train_batch(rng: np.random.Generator, subjects: int):
     """Channel-first X of N(0, 1) values and two-class one-hot labels from
     its first channel, as bench.py makes them."""
@@ -1204,15 +1659,19 @@ def main() -> int:
     tta_rows = kernel_phase(device, TTA_BATCH, args.seed + 4, card)
     check_orientation_grids(device, args.seed, card)
     grad_rows = grad_kernel_phase(device, half_batch, args.seed, card)
+    ms_rows = kernel_phase(device, 1, args.seed + 6, card, MS_CONV_CLASSES)
+    check_classes(device, args.seed + 8, card, MS_LARGE_BATCH, MS_LARGE_CLASSES)
     slice_phase(card, args.seed, rows)
     tta_phase(card, args.seed, tta_rows)
+    msseg2_phase(card, args.seed, ms_rows)
     state_dict, batch_cf = train_phase(card, args.seed, grad_rows)
     step_totals(rows + grad_rows, card)
     tta_totals(tta_rows, card)
+    ms_totals(ms_rows, card)
     cpu_train_comparison(card, state_dict, batch_cf)
 
     rows = [{key: value for key, value in row.items() if not key.startswith("_")}
-            for row in rows + tta_rows + grad_rows]
+            for row in rows + tta_rows + grad_rows + ms_rows]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

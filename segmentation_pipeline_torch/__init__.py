@@ -6,7 +6,9 @@ reference. It covers whole-volume inference (the data model,
 StandardPredict, SegModel, NestedResUNet), the dmri_hippo serving path
 around it (the deterministic transforms and the inversion of their tape,
 fold and flip/orientation ensembles, bit-packed label fetch, host
-post-processing) and the train step (make_train_step,
+post-processing), msseg2 serving (the geometry transforms, sliding-window
+PatchPredict, ModularUNet with blurred strided and transposed convs) and
+the train step (make_train_step,
 HybridLogisticDiceLoss, Adam and SGD). The 3x3x3 convs and
 their input and weight gradients run on hand-written CUDA kernels
 (csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
@@ -14,11 +16,12 @@ card unless the caller passes ``device="cpu"``.
 """
 from .core import Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti, write_nifti
 from .criterions import HybridLogisticDiceLoss
-from .models import Block3d, NestedResUNet, flax_to_state_dict, state_dict_to_flax
+from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, NestedResUNet,
+                     WSConv3d, flax_to_state_dict, state_dict_to_flax)
 from .models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientations
 from .post_processing import (keep_components, remove_holes, remove_small_components,
                               sort_by_size, unsort_by_size)
-from .prediction import Predictor, StandardPredict, add_evaluation_labels
+from .prediction import PatchPredict, Predictor, StandardPredict, add_evaluation_labels
 from .training import SGD, Adam, SegModel, collate_to_device, create_train_state, make_train_step
 from .transforms import *  # noqa: F401,F403
 from . import post_processing

@@ -8,10 +8,24 @@ the packed bytes are the same. Round trips are bit-exact.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import numpy as np
 import torch
 
-__all__ = ["bits_for", "pack_ids", "unpack_ids", "fetch_ids"]
+__all__ = ["idx_dtype_for", "argmax_ids", "bits_for", "pack_ids", "unpack_ids",
+           "start_fetch", "fetch_ids"]
+
+
+def idx_dtype_for(n_channels: int) -> torch.dtype:
+    """Smallest integer dtype holding channel indices (device-argmax fetch)."""
+    return torch.uint8 if n_channels <= 255 else torch.int32
+
+
+def argmax_ids(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The argmax over the channel axis ``dim`` as label ids of
+    ``idx_dtype_for(C)``, on x's device."""
+    return torch.argmax(x, dim=dim).to(idx_dtype_for(x.shape[dim]))
 
 
 def bits_for(n_classes: int) -> int:
@@ -61,9 +75,43 @@ def unpack_ids(packed: np.ndarray, n_classes: int, shape) -> np.ndarray:
     return flat[:n].reshape(shape)
 
 
+def start_fetch(t: torch.Tensor, n_classes: Optional[int] = None
+                ) -> Callable[[], np.ndarray]:
+    """Queue what precedes the host copy of ``t`` and return ``finish()``,
+    which copies it and returns host numpy. With ``n_classes``, ``t`` holds
+    label ids and goes bit-packed when the classes fit uint8, as a plain
+    copy otherwise: the one fetch policy of every device-argmax path.
+
+    On a CUDA tensor the copy runs on a side stream that waits for an event
+    recorded here, so work queued on the device between this call and
+    ``finish()`` (the next subject's window) does not delay it."""
+    post = np.asarray
+    if n_classes is not None and n_classes <= 255:
+        shape = tuple(t.shape)
+        t = pack_ids(t, n_classes)
+        post = lambda host: unpack_ids(host, n_classes, shape)  # noqa: E731
+    t = t.contiguous()
+    if t.device.type != "cuda":
+        return lambda: post(t.numpy())
+    ready = torch.cuda.Event()
+    ready.record()
+
+    def finish():
+        stream = torch.cuda.Stream(device=t.device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            host = t.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        t.record_stream(stream)
+        done.synchronize()
+        return post(host.numpy())
+
+    return finish
+
+
 def fetch_ids(ids_dev: torch.Tensor, n_classes: int) -> np.ndarray:
-    """One packed device-to-host copy of label ids -> host uint8 ids of the
-    same shape, equal to ``ids_dev.cpu().numpy()`` as uint8."""
-    shape = tuple(ids_dev.shape)
-    packed = pack_ids(ids_dev, n_classes).cpu().numpy()
-    return unpack_ids(packed, n_classes, shape)
+    """Label ids to the host now (``start_fetch``'s policy): host ids of the
+    same shape, equal to ``ids_dev.cpu().numpy()``, uint8 when the classes
+    fit it."""
+    return start_fetch(ids_dev, n_classes)()

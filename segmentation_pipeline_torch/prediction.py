@@ -1,6 +1,7 @@
-"""Whole-image prediction, ported from segmentation_pipeline_tpu/prediction.py
-(``StandardPredict`` with the sagittal split-and-flip batching trick, and
-``add_evaluation_labels``).
+"""Predictors, ported from segmentation_pipeline_tpu/prediction.py:
+``StandardPredict`` (whole images, with the sagittal split-and-flip batching
+trick), ``PatchPredict`` (sliding-window patches, ops/sliding_window.py) and
+``add_evaluation_labels``.
 
 The prediction stays on the device through the model; with ``device_argmax``
 only the label ids come back to the host, bit-packed (ops/bitpack.py).
@@ -16,7 +17,9 @@ import torch
 
 from .core.subject import LabelMap, Subject, collate_subjects
 from .device import resolve_device
-from .ops.bitpack import fetch_ids
+from .ops.bitpack import argmax_ids, fetch_ids, start_fetch
+from .ops.sliding_window import sliding_window_inference
+from .training.model import SegModel
 from .transforms.base import LabelTransform, apply_inverse_on_new_subject
 from .transforms.spatial import EnforceConsistentAffine
 from .transforms.structural import ConcatenateImages, CopyProperty, RenameProperty
@@ -46,14 +49,67 @@ class Predictor(ABC):
         ...
 
 
+class _LazyBatch(dict):
+    """Batch dict whose input-image entries collate on first access.
+
+    PatchPredict's main consumer, the trainer's scheduled validation sweep,
+    discards the returned batch, so collating the input volumes eagerly would
+    upload each one to the device for nothing. ``y_pred`` is set eagerly; the
+    named input images collate (to the predictor's device, through the device
+    mirrors when ``cache``) only when indexed.
+    """
+
+    def __init__(self, subjects, image_names, cache: bool, device):
+        super().__init__()
+        self._subjects = list(subjects)
+        self._lazy = list(image_names)
+        self._cache = cache
+        self._device = device
+
+    def _materialize(self, key):
+        value = collate_subjects(self._subjects, image_names=[key], device=self._device,
+                                 cache=self._cache)[key]
+        dict.__setitem__(self, key, value)
+        return value
+
+    def __missing__(self, key):
+        if key in self._lazy:
+            return self._materialize(key)
+        raise KeyError(key)
+
+    def __contains__(self, key):
+        return dict.__contains__(self, key) or key in self._lazy
+
+    def get(self, key, default=None):
+        # only an ABSENT key returns the default: a KeyError raised while
+        # materializing a present key (a subject missing the image) is a
+        # data problem and propagates
+        if key not in self:
+            return default
+        return self[key]
+
+    def _all_keys(self):
+        return list(dict.keys(self)) + [k for k in self._lazy if not dict.__contains__(self, k)]
+
+    def keys(self):
+        return self._all_keys()
+
+    def __iter__(self):
+        return iter(self._all_keys())
+
+    def __len__(self):
+        return len(self._all_keys())
+
+    def items(self):
+        return [(k, self[k]) for k in self._all_keys()]
+
+    def values(self):
+        return [self[k] for k in self._all_keys()]
+
+
 # the transform types whose inverses produce evaluation-space labels
 EVAL_LABEL_TYPES = (LabelTransform, CopyProperty, RenameProperty,
                     ConcatenateImages)
-
-
-def idx_dtype_for(n_channels: int) -> torch.dtype:
-    """Smallest integer dtype holding channel indices (device-argmax fetch)."""
-    return torch.uint8 if n_channels <= 255 else torch.int32
 
 
 def ids_to_onehot(ids: np.ndarray, n_channels: int, channel_axis: int = 0
@@ -61,15 +117,6 @@ def ids_to_onehot(ids: np.ndarray, n_channels: int, channel_axis: int = 0
     """Expand argmax ids back to the float32 one-hot the framework's y_pred
     consumers expect. Host-side: a memory-bandwidth op, never a transfer."""
     return np.moveaxis(np.eye(n_channels, dtype=np.float32)[ids], -1, channel_axis)
-
-
-def _fetch_ids_host(ids_dev: torch.Tensor, n_channels: int) -> np.ndarray:
-    """Fetch device argmax ids to the host: bit-packed (ceil(log2 C) bits per
-    voxel) when C fits uint8, a plain copy otherwise. The one fetch policy of
-    every device_argmax path."""
-    if n_channels <= 255:
-        return fetch_ids(ids_dev, n_channels)
-    return ids_dev.cpu().numpy()
 
 
 def _attach_prediction(subject: Subject, y_pred: np.ndarray, label_attributes):
@@ -111,8 +158,8 @@ class StandardPredict(Predictor):
         batch["y_pred"] = y_pred
         n_ch = y_pred.shape[1]
         if self.device_argmax and n_ch > 1:
-            ids = torch.argmax(y_pred, dim=1).to(idx_dtype_for(n_ch))
-            y_np = ids_to_onehot(_fetch_ids_host(ids, n_ch), n_ch, channel_axis=1)
+            y_np = ids_to_onehot(fetch_ids(argmax_ids(y_pred, 1), n_ch), n_ch,
+                                 channel_axis=1)
         else:
             # C == 1: the single channel IS the mask/probability — argmax
             # would collapse it to all-zero ids; fall back to the full fetch
@@ -120,6 +167,182 @@ class StandardPredict(Predictor):
         out_subjects = []
         for i, subject in enumerate(subjects):
             out_subjects.append(_attach_prediction(subject, y_np[i], label_attributes))
+        return out_subjects, batch
+
+
+class PatchPredict(Predictor):
+    """Sliding-window patch prediction with overlap-add on ``device`` (the
+    card unless the caller passes ``device="cpu"``).
+
+    Each subject's ``X`` is padded where it is smaller than the patch
+    (``padding_mode``: None or 0 for zeros, ``"edge"``, or a constant) and,
+    with ``shape_bucket``, up to the next multiple of it; uploaded (cast to
+    the model's ``compute_dtype`` on the host first, or kept on the device
+    through ``Image.device_mirror`` with ``cache_inputs``); run through
+    ``sliding_window_inference``; and, with ``device_argmax`` and more than
+    one output channel, fetched as bit-packed argmax ids and attached as
+    their one-hot expansion. Subject i's fetch waits only for its own
+    device work: subject i+1's window is queued before it. ``batch["y_pred"]``
+    is host numpy, a list for a ragged cohort.
+
+    A SegModel runs its module on channels-last patches in its
+    ``compute_dtype``; any other callable (an ensemble) gets channel-first
+    patches. Out of device memory, the patch batch halves and stays halved
+    for later subjects and calls.
+    """
+
+    # set by the trainer's device-confusion sweep in the JAX package
+    _confusion_plan = None
+
+    def __init__(self, image_names: Sequence[str] = ("X",), patch_batch_size: int = 16,
+                 patch_size=None, patch_overlap=(0, 0, 0), padding_mode=None,
+                 overlap_mode: str = "average", shape_bucket: int = 0,
+                 mesh=None, volume_sharded: bool = False,
+                 device_argmax: bool = False,
+                 cache_inputs: Optional[bool] = None,
+                 device_postprocess: Optional[Sequence] = None,
+                 device=None):
+        if mesh is not None or volume_sharded:
+            raise NotImplementedError(
+                "PatchPredict(mesh=..., volume_sharded=...) waits for the multi-device "
+                "slice (ROADMAP, Queue 1: multi-device)")
+        self.image_names = list(image_names)
+        self.patch_batch_size = patch_batch_size
+        self.patch_size = patch_size
+        self.patch_overlap = patch_overlap
+        self.padding_mode = padding_mode
+        self.overlap_mode = overlap_mode
+        self.shape_bucket = shape_bucket
+        self.device_argmax = device_argmax
+        self.cache_inputs = cache_inputs
+        self.device_postprocess = list(device_postprocess) if device_postprocess else None
+        self.device = resolve_device(device)
+
+    def _pad_volume(self, volume: np.ndarray, pad) -> np.ndarray:
+        if self.padding_mode in (None, 0):
+            return np.pad(volume, pad)
+        if self.padding_mode == "edge":
+            return np.pad(volume, pad, mode="edge")
+        return np.pad(volume, pad, mode="constant", constant_values=float(self.padding_mode))
+
+    def _upload(self, data, pad, padded: bool, dtype: Optional[torch.dtype]) -> torch.Tensor:
+        """Pad on the host, cast there (to ``dtype`` through torch, since
+        numpy has no bfloat16), then one host-to-device copy."""
+        volume = np.asarray(data)
+        if padded:
+            volume = self._pad_volume(volume, pad)
+        volume = torch.as_tensor(volume, dtype=torch.float32)
+        if dtype is not None:
+            volume = volume.to(dtype)
+        return volume.to(self.device)
+
+    def _model_fn(self, model):
+        """The model on channels-last patches -> channels-last float32, and
+        the dtype its input volume is uploaded in (None: float32)."""
+        if isinstance(model, SegModel):
+            model.ensure_initialized()
+            module, dtype = model.module, model._dtype()
+            module.eval()
+            return (lambda patches: module(patches).float()), dtype
+
+        def generic(patches):
+            return model(patches.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1).float()
+
+        return generic, None
+
+    def _run_with_batch_degrade(self, run):
+        """``run(batch_size)``, halving the patch batch while the device runs
+        out of memory; the batch that ran is remembered for later subjects
+        and calls."""
+        batch_size = getattr(self, "_effective_patch_batch", self.patch_batch_size)
+        while True:
+            try:
+                out = run(batch_size)
+                self._effective_patch_batch = batch_size
+                return out
+            except torch.cuda.OutOfMemoryError:
+                if batch_size <= 1:
+                    raise
+                batch_size = max(1, batch_size // 2)
+                torch.cuda.empty_cache()
+                print(f"PatchPredict: out of device memory; retrying with "
+                      f"patch_batch_size={batch_size}", flush=True)
+
+    def predict(self, model, subjects, label_attributes=None):
+        if self._confusion_plan is not None:
+            raise NotImplementedError(
+                "PatchPredict's device-confusion sweep waits for the trainer's slice "
+                "(ROADMAP, Queue 1: sustained training loop)")
+        if self.device_postprocess and subjects:
+            if not self.device_argmax:
+                raise ValueError(
+                    "device_postprocess requires device_argmax with a multi-channel model "
+                    "(the fused cleanup runs on argmax ids); got device_argmax=False. Use "
+                    "the host post_processing functions instead.")
+            raise NotImplementedError(
+                "PatchPredict(device_postprocess=...) waits for the device morphology "
+                "(ROADMAP, Queue 1: native labeller and device post-processing)")
+        patch_size = self.patch_size
+        if patch_size is None:
+            raise ValueError("PatchPredict needs a patch_size")
+        if isinstance(patch_size, int):
+            patch_size = (patch_size,) * 3
+        model_fn, dtype = self._model_fn(model)
+
+        out_subjects, preds = [], []
+
+        def finalize(subject, spatial, padded, n_ch, finish):
+            y_np = finish()
+            if n_ch is not None:
+                if padded:
+                    y_np = y_np[:spatial[0], :spatial[1], :spatial[2]]
+                y_np = ids_to_onehot(y_np, n_ch)
+            elif padded:
+                y_np = y_np[:, :spatial[0], :spatial[1], :spatial[2]]
+            preds.append(y_np)
+            out_subjects.append(_attach_prediction(subject, y_np, label_attributes))
+
+        pending = None
+        for subject in subjects:
+            image = subject["X"]
+            spatial = image.spatial_shape
+            targets = [max(p, s) for p, s in zip(patch_size, spatial)]
+            if self.shape_bucket:
+                b = self.shape_bucket
+                targets = [((t + b - 1) // b) * b for t in targets]
+            pad = [(0, 0)] + [(0, t - s) for t, s in zip(targets, spatial)]
+            padded = any(p[1] for p in pad)
+            if self.cache_inputs:
+                key = ("swi", tuple(targets), str(self.padding_mode), str(dtype),
+                       str(self.device))
+                volume = image.device_mirror(
+                    key, lambda data, pad=pad, padded=padded: self._upload(data, pad, padded,
+                                                                           dtype))
+            else:
+                volume = self._upload(image.data, pad, padded, dtype)
+            y = self._run_with_batch_degrade(lambda bs: sliding_window_inference(
+                volume, model_fn, patch_size, self.patch_overlap, bs, self.overlap_mode))
+            del volume
+            # with one channel, the channel is the mask: an argmax would be 0
+            n_ch = y.shape[0] if self.device_argmax and y.shape[0] > 1 else None
+            finish = start_fetch(argmax_ids(y, 0) if n_ch else y, n_ch)
+            del y
+            if pending is not None:
+                finalize(*pending)
+            pending = (subject, spatial, padded, n_ch, finish)
+        if pending is not None:
+            finalize(*pending)
+
+        batch = _LazyBatch(subjects, self.image_names, cache=bool(self.cache_inputs),
+                           device=self.device)
+        if not preds:
+            batch["y_pred"] = None
+        elif len({p.shape for p in preds}) == 1:
+            batch["y_pred"] = np.stack(preds)
+        else:
+            # a ragged cohort (what shape_bucket serves) has no rectangular
+            # stack: the per-subject arrays, in subject order
+            batch["y_pred"] = list(preds)
         return out_subjects, batch
 
 

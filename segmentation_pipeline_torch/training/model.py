@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.components import BatchNorm, Conv3d
+from ..models.components import BatchNorm, Conv3d, _ZeroBiasConv
 
 
 def to_channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -46,12 +46,14 @@ class SegModel:
     # ---- init ----------------------------------------------------------
     def ensure_initialized(self):
         """Initialize every parameter from ``seed`` unless weights were
-        loaded: torch's Conv3d init for convs, ones/zeros for BatchNorm."""
+        loaded: torch's Conv3d init for convs (the kernels of WSConv3d,
+        BlurConv3d and BlurConvTranspose3d too, whose biases start at zero),
+        ones/zeros for BatchNorm."""
         if self.initialized:
             return
         generator = torch.Generator().manual_seed(self.seed)
         for module in self.module.modules():
-            if isinstance(module, Conv3d):
+            if isinstance(module, (Conv3d, _ZeroBiasConv)):
                 module.reset_parameters(generator)
             elif isinstance(module, BatchNorm):
                 module.reset_parameters()

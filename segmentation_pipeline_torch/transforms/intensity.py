@@ -1,7 +1,8 @@
 """Intensity transforms, ported from
 segmentation_pipeline_tpu/transforms/intensity.py: the deterministic ones that
-the dmri_hippo ``default`` pipeline applies (``ReplaceNan``,
-``RescaleIntensity``). Host-side numpy, as in the JAX package.
+the dmri_hippo and msseg2 ``default`` pipelines apply (``ReplaceNan``,
+``SetDataType``, ``RescaleIntensity``). Host-side numpy, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -25,6 +26,25 @@ class ReplaceNan(Transform):
             if np.issubdtype(data.dtype, np.floating):
                 data = np.nan_to_num(data, nan=self.replace_val, copy=False)
             image.set_data(data)
+        return None
+
+
+class SetDataType(Transform):
+    """Cast image data. Accepts numpy dtypes or the strings
+    'float'/'float32'/'int32' etc."""
+
+    def __init__(self, data_type, intensity_only: bool = True, **kwargs):
+        super().__init__(**kwargs)
+        if data_type in ("float", float):
+            data_type = np.float32
+        if data_type in ("int", int):
+            data_type = np.int32
+        self.data_type = np.dtype(data_type)
+        self.intensity_only = intensity_only
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject, intensity_only=self.intensity_only):
+            image.set_data(np.asarray(image.data).astype(self.data_type))
         return None
 
 

@@ -1,15 +1,20 @@
 """Spatial transforms, ported from segmentation_pipeline_tpu/transforms/spatial.py:
 ``Crop``, ``Pad``, ``CropOrPad`` (with mask centring, and its exact inverse
-``_UndoCropOrPad``) and ``EnforceConsistentAffine``. Every transform keeps
-the affines, so world geometry, and with it the inversion back to the
-original scanner grid, stays exact. Host-side numpy, as in the JAX package.
+``_UndoCropOrPad``), ``resample_array``, ``Resample``, ``TargetResample``,
+``CropToMask``, ``MinSizePad`` and ``EnforceConsistentAffine``. Every
+transform keeps the affines, so world geometry, and with it the inversion
+back to the original scanner grid, stays exact. Host-side numpy and
+scipy.ndimage, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import itertools
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+from scipy import ndimage as ndi
 
+from ..core.subject import LabelMap
 from .base import SpatialTransform, Transform
 
 TypeBounds = Tuple[int, int, int, int, int, int]  # w_ini, w_fin, h_ini, h_fin, d_ini, d_fin
@@ -181,6 +186,195 @@ class _UndoCropOrPad(SpatialTransform):
         if any(self.crop):
             Pad(self.crop, **self._selection_kwargs())(subject, record=False)
         return None
+
+
+def resample_array(
+    data: np.ndarray,
+    src_affine: np.ndarray,
+    dst_affine: np.ndarray,
+    dst_shape: Sequence[int],
+    order: int,
+    cval: float = 0.0,
+) -> np.ndarray:
+    """Resample (C, W, H, D) data from src grid to dst grid in world space."""
+    M = np.linalg.inv(src_affine) @ dst_affine  # dst index -> src index
+    out = np.empty((data.shape[0], *dst_shape), dtype=np.float32)
+    matrix = M[:3, :3]
+    offset = M[:3, 3]
+    for c in range(data.shape[0]):
+        out[c] = ndi.affine_transform(
+            data[c].astype(np.float32), matrix, offset=offset,
+            output_shape=tuple(dst_shape), order=order, mode="constant", cval=cval,
+            prefilter=order > 1,
+        )
+    return out
+
+
+_INTERP_ORDER = {"nearest": 0, "linear": 1}
+
+
+class Resample(SpatialTransform):
+    """Resample all images to a target spacing (tio.Resample semantics).
+
+    target: float or 3-tuple spacing in mm. Labels use nearest
+    interpolation; scalars use ``image_interpolation`` ("linear" or
+    "nearest").
+    """
+
+    def __init__(self, target, image_interpolation: str = "linear", **kwargs):
+        super().__init__(**kwargs)
+        self.target = target
+        self.image_interpolation = image_interpolation
+
+    @staticmethod
+    def parse_spacing(spacing):
+        if isinstance(spacing, (int, float)):
+            return (float(spacing),) * 3
+        return tuple(float(s) for s in spacing)
+
+    def _target_grid(self, image):
+        spacing = self.parse_spacing(self.target)
+        affine = image.affine
+        old_spacing = np.sqrt((affine[:3, :3] ** 2).sum(axis=0))
+        directions = affine[:3, :3] / old_spacing[None, :]
+        new_affine = affine.copy()
+        new_affine[:3, :3] = directions * np.array(spacing)[None, :]
+        old_shape = np.array(image.spatial_shape, dtype=np.float64)
+        new_shape = np.ceil(old_shape * old_spacing / np.array(spacing) - 1e-6).astype(int)
+        return new_affine, tuple(int(s) for s in new_shape)
+
+    def apply_transform(self, subject):
+        sources = {}
+        for name, image in self.get_images_dict(subject).items():
+            dst_affine, dst_shape = self._target_grid(image)
+            order = 0 if isinstance(image, LabelMap) else _INTERP_ORDER[self.image_interpolation]
+            sources[name] = (image.affine.copy(), image.spatial_shape)
+            data = resample_array(np.asarray(image.data), image.affine, dst_affine, dst_shape,
+                                  order)
+            if isinstance(image, LabelMap):
+                data = np.rint(data).astype(np.int32)
+            image.set_data(data)
+            image.affine = dst_affine
+        # recorded so that offline tools can resample back to the original grid
+        return {"sources": sources}
+
+    def is_invertible(self):
+        return False
+
+
+class TargetResample(Resample):
+    """Resample to a target spacing only if outside tolerance, choosing a
+    rational scale."""
+
+    def __init__(self, target_spacing, tolerance, image_interpolation: str = "linear",
+                 **kwargs):
+        target_spacing = Resample.parse_spacing(target_spacing)
+        super().__init__(target=target_spacing, image_interpolation=image_interpolation,
+                         **kwargs)
+        self.target_spacing = target_spacing
+        self.tolerance = Resample.parse_spacing(tolerance)
+
+    @staticmethod
+    def _snap_spacing(cur: float, tar: float, tol: float) -> float:
+        """Smallest-denominator rational snap of the per-axis resample scale:
+        walking denominators q = 1, 2, ..., round the scale ratio to the
+        nearest q-th (upscaling snaps tar/cur to p/q; downscaling snaps
+        cur/tar to p/q and uses its reciprocal) and accept the first spacing
+        within tolerance of the target. Low-denominator rational scales keep
+        resampled grid dimensions exact."""
+        if abs(cur - tar) <= tol:
+            return cur
+        upscale = cur < tar
+        ratio = (tar / cur) if upscale else (cur / tar)
+        for q in itertools.count(1):
+            snapped = round(ratio * q) / q
+            spacing = cur * (snapped if upscale else 1.0 / snapped)
+            if abs(spacing - tar) <= tol:
+                return spacing
+
+    def apply_transform(self, subject):
+        current = subject.get_first_image().spacing
+        target = self.target_spacing
+
+        if all(abs(c - t) < tol for c, t, tol in zip(current, target, self.tolerance)):
+            return None
+
+        new_spacing = [self._snap_spacing(cur, tar, tol)
+                       for cur, tar, tol in zip(current, target, self.tolerance)]
+
+        resample = Resample(target=tuple(new_spacing),
+                            image_interpolation=self.image_interpolation)
+        return resample.apply_transform(subject)
+
+
+class CropToMask(SpatialTransform):
+    """Crop to the bounding box of a label mask."""
+
+    def __init__(self, label_map_name: str, label_id: int = 1, label_channel: int = 0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.label_map_name = label_map_name
+        self.label_id = label_id
+        self.label_channel = label_channel
+
+    def apply_transform(self, subject):
+        if self.label_map_name not in subject:
+            return None
+        mask = np.asarray(subject[self.label_map_name].data)[self.label_channel] == self.label_id
+        W, H, D = mask.shape
+        if not mask.any():
+            raise RuntimeError(
+                f"CropToMask: mask '{self.label_map_name}' has no voxels with "
+                f"label_id={self.label_id}; cannot crop")
+        ws, hs, ds = np.where(mask)
+        cropping = (
+            int(ws.min()), int(W - ws.max() - 1),
+            int(hs.min()), int(H - hs.max() - 1),
+            int(ds.min()), int(D - ds.max() - 1),
+        )
+        Crop(cropping)(subject, record=False)
+        return {"cropping": cropping}
+
+    def is_invertible(self):
+        return False
+
+
+class MinSizePad(Transform):
+    """Symmetric pad up to a minimum shape; its inverse crops the padding
+    back off."""
+
+    def __init__(self, min_size, padding_mode=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(min_size, int):
+            self.min_size = (min_size,) * 3
+        elif isinstance(min_size, tuple):
+            self.min_size = min_size
+        else:
+            raise KeyError("min_size must be an int or tuple")
+        self.padding_mode = padding_mode
+
+    def apply_transform(self, subject):
+        _, W, H, D = subject.get_first_image().shape
+        padding = []
+        for size, target in zip((W, H, D), self.min_size):
+            if size < target:
+                diff = target - size
+                half = diff // 2
+                padding += [half, half + (diff % 2)]
+            else:
+                padding += [0, 0]
+        padding = tuple(padding)
+        if any(padding):
+            Pad(padding, padding_mode=self.padding_mode,
+                **self._sel())(subject, record=False)
+        return {"padding": padding}
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        padding = (args or {}).get("padding", (0,) * 6)
+        return Crop(padding, **self._sel())
 
 
 class EnforceConsistentAffine(Transform):

@@ -11,7 +11,6 @@ from segmentation_pipeline_tpu.models import NestedResUNet as JNestedResUNet
 from segmentation_pipeline_tpu.models import ensemble as jens
 from segmentation_pipeline_tpu.ops import bitpack as jbitpack
 from segmentation_pipeline_tpu.training.model import SegModel as JSegModel
-from segmentation_pipeline_torch import prediction as tpred
 from segmentation_pipeline_torch.models import NestedResUNet, ensemble as tens
 from segmentation_pipeline_torch.models import flax_to_state_dict
 from segmentation_pipeline_torch.ops import bitpack as tbitpack
@@ -195,11 +194,10 @@ def test_pack_ids_bytes_match_jax(n_classes, size):
 @pytest.mark.parametrize("n_classes", [2, 5, 256])
 def test_fetch_ids_round_trip(n_classes):
     ids = np.random.default_rng(n_classes).integers(0, n_classes, (2, 7, 5, 3))
-    dtype = tpred.idx_dtype_for(n_classes)
-    fetched = tpred._fetch_ids_host(torch.from_numpy(ids).to(dtype), n_classes)
+    dtype = tbitpack.idx_dtype_for(n_classes)
+    fetched = tbitpack.fetch_ids(torch.from_numpy(ids).to(dtype), n_classes)
     assert fetched.shape == ids.shape
     np.testing.assert_array_equal(fetched, ids)
     if n_classes <= 255:
         np.testing.assert_array_equal(
-            tbitpack.fetch_ids(torch.from_numpy(ids).to(dtype), n_classes),
-            jbitpack.fetch_ids(jnp.asarray(ids, jnp.uint8), n_classes))
+            fetched, jbitpack.fetch_ids(jnp.asarray(ids, jnp.uint8), n_classes))

@@ -60,6 +60,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         tsp.collate_subjects([subject], ["X"])
     with pytest.raises(RuntimeError, match="CUDA"):
         StandardPredict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsp.PatchPredict(patch_size=8)
+    assert tsp.PatchPredict(patch_size=8, device="cpu").device.type == "cpu"
     assert tsp.collate_subjects([subject], ["X"], device="cpu")["X"].device.type == "cpu"
     batch = {"X": np.zeros((1, 1, 2, 2, 2), np.float32)}
     with pytest.raises(RuntimeError, match="CUDA"):

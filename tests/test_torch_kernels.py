@@ -270,3 +270,69 @@ def test_function_on_card_gives_the_kernels_gradients(cuda_device):
     assert (k.grad - ref_dk).abs().max() <= 1e-4 * ref_dk.abs().max()
     ref_dx = conv3x3_s1p1_dx_plain(g, k.detach())
     assert (x.grad - ref_dx).abs().max() <= 1e-4 * ref_dx.abs().max()
+
+
+# msseg2's ModularUNet at a 96^3 patch meets new classes: Cin 2 (the
+# network's input, staged by plain loads), Cin 240 (the longest K loop) and
+# volumes smaller than one 4x8x8 tile in every axis (6^3 and 3^3).
+MSSEG2_SHAPES = [(1, 12, 10, 9, 2, 40), (1, 6, 6, 6, 240, 120), (2, 6, 6, 6, 80, 120),
+                 (1, 3, 3, 3, 120, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MSSEG2_SHAPES)
+def test_forward_kernel_at_msseg2_classes_on_card(cuda_device, dtype, shape):
+    """Random inputs within 1e-5 (f32, 3xTF32) or one bf16 rounding of
+    max|ref| of the plain version; small integers bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    x = torch.from_numpy(_normal((n, w, h, d, cin), 30)).to(cuda_device, dtype)
+    k = torch.from_numpy(_normal((3, 3, 3, cin, cout), 31) / np.float32(np.sqrt(27 * cin)))
+    k = k.to(cuda_device, dtype)
+    out, ref = conv3x3_s1p1(x, k), conv3x3_s1p1_plain(x.float(), k.float())
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = (out.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err / ref.abs().max().item()
+    rng = np.random.default_rng(32)
+    x, k = (torch.from_numpy(rng.integers(-4, 5, s).astype(np.float32)).to(cuda_device, dtype)
+            for s in ((n, w, h, d, cin), (3, 3, 3, cin, cout)))
+    assert torch.equal(conv3x3_s1p1(x, k), conv3x3_s1p1_plain(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["conv3d", "conv_transpose3d"])
+def test_library_convs_stay_f32_with_global_tf32_on(cuda_device, kind):
+    """The port's strided and transposed f32 convs go to cuDNN; with
+    cuDNN's TF32 switched on for the whole process, as PyTorch's default
+    is, they still give float32 results, forward and both gradients: each
+    within 1e-5 of max|ref| of the same conv in float64 (TF32 would miss it
+    by about 100x)."""
+    from segmentation_pipeline_torch.ops import convolution
+
+    x = torch.from_numpy(_normal((2, 12, 10, 8, 40), 33)).to(cuda_device)
+    k = torch.from_numpy(_normal((4, 4, 4, 40, 40), 34) / np.float32(np.sqrt(64 * 40)))
+    k = k.to(cuda_device)
+    conv = getattr(convolution, kind)
+
+    def run(x, k):
+        x, k = x.clone().requires_grad_(), k.clone().requires_grad_()
+        out = conv(x, k, stride=2, padding=1)
+        g = torch.from_numpy(_normal(tuple(out.shape), 35)).to(x.device, x.dtype)
+        out.backward(g)
+        return out.detach(), x.grad, k.grad
+
+    previous = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        outs = run(x, k)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous
+    refs = run(x.double(), k.double())
+    for name, out, ref in zip(("out", "dx", "dw"), outs, refs):
+        assert out.dtype == torch.float32 and out.shape == ref.shape, name
+        err = (out.double() - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), (name, err / ref.abs().max().item())

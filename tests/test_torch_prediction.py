@@ -12,6 +12,7 @@ from segmentation_pipeline_tpu.training.model import SegModel as JSegModel
 import segmentation_pipeline_torch as tsp
 from segmentation_pipeline_torch import prediction as tpred
 from segmentation_pipeline_torch.models import flax_to_state_dict
+from segmentation_pipeline_torch.ops.bitpack import idx_dtype_for
 from segmentation_pipeline_torch.training.model import SegModel
 
 torch.set_num_threads(2)
@@ -71,7 +72,7 @@ def test_split_and_flip_matches_jax():
 
 @pytest.mark.parametrize("n_channels", [2, 255, 256])
 def test_idx_dtype_and_onehot_match_jax(n_channels):
-    assert str(tpred.idx_dtype_for(n_channels)).split(".")[-1] == \
+    assert str(idx_dtype_for(n_channels)).split(".")[-1] == \
         np.dtype(jpred.idx_dtype_for(n_channels)).name
     ids = np.random.default_rng(1).integers(0, n_channels, size=(2, 3, 4))
     np.testing.assert_array_equal(tpred.ids_to_onehot(ids, n_channels, 1),
