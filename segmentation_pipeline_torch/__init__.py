@@ -7,15 +7,19 @@ StandardPredict, SegModel, NestedResUNet), the dmri_hippo serving path
 around it (the deterministic transforms and the inversion of their tape,
 fold and flip/orientation ensembles, bit-packed label fetch, host
 post-processing), msseg2 serving (the geometry transforms, sliding-window
-PatchPredict, ModularUNet with blurred strided and transposed convs) and
-the train step (make_train_step,
-HybridLogisticDiceLoss, Adam and SGD). The 3x3x3 convs and
+PatchPredict, ModularUNet with blurred strided and transposed convs),
+msseg2's training data path (the random transforms, the patch queue and
+its samplers) and the train step (make_train_step,
+HybridLogisticDiceLoss, Adam and SGD; ModularUNet's rematerialized
+blocks). The 3x3x3 convs and
 their input and weight gradients run on hand-written CUDA kernels
 (csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
 from .core import Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti, write_nifti
 from .criterions import HybridLogisticDiceLoss
+from .data import (LabelSampler, PatchDataLoader, PatchQueue, RandomSampler, SequentialSampler,
+                   StandardDataLoader, UniformSampler, WeightedSampler)
 from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, NestedResUNet,
                      WSConv3d, flax_to_state_dict, state_dict_to_flax)
 from .models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientations

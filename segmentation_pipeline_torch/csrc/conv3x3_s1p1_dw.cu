@@ -18,8 +18,9 @@
 // at 989 TFLOP/s; f32 as three TF32 products per multiply-add, so its bound
 // is max(3 * ops / 495 TFLOP/s, bytes / 3.35 TB/s). Unlike the forward, the
 // reduction runs over the M = N*W*H*D voxels (811,008 at the dmri_hippo
-// training batch) into a small output (27*Cin*Cout, at most 129,600 values
-// at 120->40): a split-K problem.
+// training batch, 3,538,944 at msseg2's four 96^3 patches) into a small
+// output (27*Cin*Cout, at most 777,600 values at msseg2's 240->120; the
+// wrapper allocates the workspace, splits rows of it): a split-K problem.
 //
 // What this design does about it. Both types cut the voxels into 4x8x8
 // tiles, as the forward does, give each block a contiguous run of tiles (one

@@ -9,6 +9,7 @@ name. Convs route through ops/convolution.py.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Optional
 
@@ -183,6 +184,10 @@ class BatchNorm(nn.Module):
     ``0.9 * old + 0.1 * batch``, with the *biased* variance (torch's
     BatchNorm3d takes the unbiased one). Eval mode: ``F.batch_norm`` with the
     running statistics. The state-dict keys are torch's BatchNorm3d's.
+
+    Inside ``statistics_frozen`` a train-mode forward normalizes as always
+    but leaves the running statistics alone: the recompute of a
+    rematerialized block must not move them a second time.
     """
 
     MOMENTUM = 0.9
@@ -195,6 +200,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.frozen = False
 
     def reset_parameters(self):
         with torch.no_grad():
@@ -213,14 +219,29 @@ class BatchNorm(nn.Module):
         axes = tuple(range(x.dim() - 1))
         mean = xf.mean(axes)
         var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.copy_(self.MOMENTUM * self.running_mean
-                                    + (1 - self.MOMENTUM) * mean)
-            self.running_var.copy_(self.MOMENTUM * self.running_var
-                                   + (1 - self.MOMENTUM) * var)
-            self.num_batches_tracked += 1
+        if not self.frozen:
+            with torch.no_grad():
+                self.running_mean.copy_(self.MOMENTUM * self.running_mean
+                                        + (1 - self.MOMENTUM) * mean)
+                self.running_var.copy_(self.MOMENTUM * self.running_var
+                                       + (1 - self.MOMENTUM) * var)
+                self.num_batches_tracked += 1
         y = (xf - mean) * (torch.rsqrt(var + self.EPS) * self.weight) + self.bias
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def statistics_frozen(module: nn.Module):
+    """Every BatchNorm in ``module`` keeps its running statistics inside the
+    block (``BatchNorm.frozen``), and takes updates again after it."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False
 
 
 def channel_dropout(x: torch.Tensor, p: float,

@@ -15,16 +15,23 @@ flax infers each submodule's input width; here every constructor that takes
 ``filters[i-1]``, ``down_i`` and ``up_i`` read the width they keep,
 ``up_block_i`` reads ``filters[i+1] + filters[i]`` and ``out_conv``
 ``filters[0]``.
+
+``remat=True`` rematerializes every block in a train-mode forward under
+autograd, as the JAX package's ``nn.remat(block_class)``: the block's
+activations are dropped after the forward and recomputed in the backward
+(``rematerialized``).
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .components import AvgPoolDown, Block3d, Conv3d, Softmax, TrilinearUp
+from .components import AvgPoolDown, Block3d, Conv3d, Softmax, TrilinearUp, statistics_frozen
 
 _TORCH_PARAM_MAP = {
     "kernel_size": "kernel_size",
@@ -50,14 +57,42 @@ def _map_params(cls, params: Optional[Dict], features: Optional[int],
     return out
 
 
+def rematerialized(block: nn.Module, x: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, generator)`` under a non-reentrant ``torch.utils.checkpoint``
+    that keeps flax's ``nn.remat`` contract: the recompute in the backward
+    draws the forward's dropout mask (``generator`` set back to its state
+    before the block, and returned to where it stood after the recompute)
+    and leaves BatchNorm's running statistics alone (``statistics_frozen``),
+    so loss, gradients, statistics and the generator's state equal those of
+    the plain call. The block draws from ``generator`` only, so the global
+    RNG states are not saved."""
+    before = generator.get_state() if generator is not None else None
+
+    @contextlib.contextmanager
+    def recompute():
+        after = generator.get_state() if generator is not None else None
+        if generator is not None:
+            generator.set_state(before)
+        try:
+            with statistics_frozen(block):
+                yield
+        finally:
+            if generator is not None:
+                generator.set_state(after)
+
+    return checkpoint(block, x, generator, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
+
+
 class ModularUNet(nn.Module):
     """x: (N, W, H, D, in_channels) -> the hypothesis of out_channels
     (channel softmax by default). Spatial sizes must halve ``depth - 1``
     times.
 
-    ``remat`` is accepted for config parity (msseg2 builds with it): in eval
-    mode it changes nothing, and training with it waits for the msseg2
-    training slice."""
+    ``remat`` rematerializes the blocks in train mode when autograd records
+    (msseg2 builds with it); in eval mode, or without autograd, it changes
+    nothing."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  filters: Union[int, Sequence[int]], depth: int,
@@ -96,20 +131,22 @@ class ModularUNet(nn.Module):
             out_channels, filters[0]))
         self.hypothesis = hypothesis_class(**(hypothesis_params or {}))
 
+    def _block(self, name: str, x: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        block = getattr(self, name)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return rematerialized(block, x, generator)
+        return block(x, generator)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.remat and self.training:
-            raise NotImplementedError(
-                "ModularUNet(remat=True) in train mode waits for the msseg2 training "
-                "slice (ROADMAP, Queue 1: msseg2 training): rematerialized blocks must "
-                "update BatchNorm's running statistics once")
         skips = []
         for i in range(self.depth):
-            x = getattr(self, f"down_block_{i}")(x, generator)
+            x = self._block(f"down_block_{i}", x, generator)
             if i != self.depth - 1:
                 skips.append(x)
                 x = getattr(self, f"down_{i}")(x)
         for i in reversed(range(self.depth - 1)):
             x = getattr(self, f"up_{i}")(x)
-            x = getattr(self, f"up_block_{i}")(torch.cat([x, skips[i]], dim=-1), generator)
+            x = self._block(f"up_block_{i}", torch.cat([x, skips[i]], dim=-1), generator)
         return self.hypothesis(self.out_conv(x))

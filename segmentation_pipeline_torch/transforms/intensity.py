@@ -1,16 +1,19 @@
 """Intensity transforms, ported from
 segmentation_pipeline_tpu/transforms/intensity.py: the deterministic ones that
 the dmri_hippo and msseg2 ``default`` pipelines apply (``ReplaceNan``,
-``SetDataType``, ``RescaleIntensity``). Host-side numpy, as in the JAX
-package.
+``SetDataType``, ``RescaleIntensity``) and the random ones of msseg2's
+``training`` pipeline (``RandomNoise``, ``RandomBlur``, ``RandomGamma``,
+``RandomBiasField``), which draw from ``get_rng()``. Host-side numpy and
+scipy.ndimage, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
+from scipy import ndimage as ndi
 
-from .base import IntensityTransform, Transform
+from .base import IntensityTransform, RandomTransform, Transform
 
 
 class ReplaceNan(Transform):
@@ -96,4 +99,99 @@ class RescaleIntensity(IntensityTransform):
             else:
                 data.fill(out_min)
             image.set_data(data)
+        return None
+
+
+class RandomNoise(RandomTransform, IntensityTransform):
+    """Additive Gaussian noise; std sampled U(0, std) per image
+    (tio.RandomNoise, main_config.py:86)."""
+
+    def __init__(self, mean: float = 0.0, std: Union[float, Tuple[float, float]] = 0.25, **kwargs):
+        super().__init__(**kwargs)
+        self.mean = tuple(mean) if isinstance(mean, (tuple, list)) else mean
+        self.std = tuple(std) if isinstance(std, (tuple, list)) else std
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject):
+            if isinstance(self.std, tuple):
+                std = self.rng.uniform(*self.std)
+            else:
+                std = self.rng.uniform(0.0, self.std)
+            mean = self.rng.uniform(*self.mean) if isinstance(self.mean, tuple) else self.mean
+            data = np.asarray(image.data, dtype=np.float32)
+            noise = self.rng.normal(mean, max(std, 1e-12), size=data.shape).astype(np.float32)
+            image.set_data(data + noise)
+        return None
+
+
+class RandomBlur(RandomTransform, IntensityTransform):
+    """Gaussian blur with per-axis std (mm) sampled from a range
+    (tio.RandomBlur, main_config.py:87)."""
+
+    def __init__(self, std: Union[float, Tuple[float, float]] = (0.0, 2.0), **kwargs):
+        super().__init__(**kwargs)
+        self.std = tuple(std) if isinstance(std, (tuple, list)) else (0.0, std)
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject):
+            std_mm = self.rng.uniform(self.std[0], self.std[1], size=3)
+            spacing = np.array(image.spacing)
+            sigma_vox = std_mm / spacing
+            data = np.asarray(image.data, dtype=np.float32)
+            out = np.stack([
+                ndi.gaussian_filter(data[c], sigma=sigma_vox) for c in range(data.shape[0])
+            ])
+            image.set_data(out)
+        return None
+
+
+class RandomGamma(RandomTransform, IntensityTransform):
+    """Gamma perturbation: gamma = exp(U(log_gamma)); sign-preserving power
+    for negative-valued images (tio.RandomGamma, main_config.py:94)."""
+
+    def __init__(self, log_gamma: Union[float, Tuple[float, float]] = (-0.3, 0.3), **kwargs):
+        super().__init__(**kwargs)
+        self.log_gamma = (tuple(log_gamma) if isinstance(log_gamma, (tuple, list))
+                          else (-log_gamma, log_gamma))
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject):
+            gamma = float(np.exp(self.rng.uniform(*self.log_gamma)))
+            data = np.asarray(image.data, dtype=np.float32)
+            if data.min() < 0:
+                out = np.sign(data) * np.abs(data) ** gamma
+            else:
+                out = data ** gamma
+            image.set_data(out.astype(np.float32))
+        return None
+
+
+class RandomBiasField(RandomTransform, IntensityTransform):
+    """Multiplicative polynomial bias field: order-3 monomials with
+    coefficients U(-c, c), field = exp(poly) over normalized coords
+    (tio.RandomBiasField, main_config.py:92)."""
+
+    def __init__(self, coefficients: Union[float, Tuple[float, float]] = 0.5, order: int = 3, **kwargs):
+        super().__init__(**kwargs)
+        self.coefficients = (tuple(coefficients)
+                             if isinstance(coefficients, (tuple, list))
+                             else (-coefficients, coefficients))
+        self.order = order
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject):
+            data = np.asarray(image.data, dtype=np.float32)
+            shape = data.shape[1:]
+            ranges = [np.linspace(-1.0, 1.0, s, dtype=np.float32) for s in shape]
+            x = ranges[0][:, None, None]
+            y = ranges[1][None, :, None]
+            z = ranges[2][None, None, :]
+            field = np.zeros(shape, dtype=np.float32)
+            for i in range(self.order + 1):
+                for j in range(self.order + 1 - i):
+                    for k in range(self.order + 1 - i - j):
+                        coeff = self.rng.uniform(*self.coefficients)
+                        field += coeff * (x ** i) * (y ** j) * (z ** k)
+            field = np.exp(field).astype(np.float32)
+            image.set_data(data * field[None])
         return None

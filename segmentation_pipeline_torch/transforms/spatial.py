@@ -1,6 +1,6 @@
 """Spatial transforms, ported from segmentation_pipeline_tpu/transforms/spatial.py:
 ``Crop``, ``Pad``, ``CropOrPad`` (with mask centring, and its exact inverse
-``_UndoCropOrPad``), ``resample_array``, ``Resample``, ``TargetResample``,
+``_UndoCropOrPad``), ``Flip``, ``resample_array``, ``Resample``, ``TargetResample``,
 ``CropToMask``, ``MinSizePad`` and ``EnforceConsistentAffine``. Every
 transform keeps the affines, so world geometry, and with it the inversion
 back to the original scanner grid, stays exact. Host-side numpy and
@@ -186,6 +186,36 @@ class _UndoCropOrPad(SpatialTransform):
         if any(self.crop):
             Pad(self.crop, **self._selection_kwargs())(subject, record=False)
         return None
+
+
+class Flip(SpatialTransform):
+    """Flip spatial axes, and the affine with them; self-inverse."""
+
+    def __init__(self, axes, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(axes, int):
+            axes = (axes,)
+        self.axes = tuple(axes)
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject):
+            data = np.asarray(image.data)
+            for axis in self.axes:
+                data = np.flip(data, axis=axis + 1)
+            image.set_data(np.ascontiguousarray(data))
+            affine = image.affine.copy()
+            for axis in self.axes:
+                size = image.data.shape[1 + axis]
+                affine[:3, 3] = affine[:3, 3] + affine[:3, axis] * (size - 1)
+                affine[:3, axis] = -affine[:3, axis]
+            image.affine = affine
+        return None
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        return Flip(self.axes, **self._sel())
 
 
 def resample_array(

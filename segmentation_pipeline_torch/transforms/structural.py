@@ -1,16 +1,18 @@
 """Structural transforms, ported from
 segmentation_pipeline_tpu/transforms/structural.py: they rearrange the subject
 dict (concatenate or split channels, copy or rename an entry) and are part of
-the evaluation-space inverse set (``EVAL_LABEL_TYPES`` in prediction.py).
+the evaluation-space inverse set (``EVAL_LABEL_TYPES`` in prediction.py);
+``PermuteDimensions`` and ``RandomPermuteDimensions`` permute the spatial
+axes (msseg2's training augmentation).
 """
 from __future__ import annotations
 
 import copy
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
-from .base import Transform
+from .base import RandomTransform, SpatialTransform, Transform
 
 
 class ConcatenateImages(Transform):
@@ -111,3 +113,47 @@ class RenameProperty(Transform):
 
     def inverse(self, args=None):
         return RenameProperty(self.new_name, self.old_name)
+
+
+class PermuteDimensions(SpatialTransform):
+    """Permute the three spatial dims of all selected images, and the
+    affine's columns with them, so that world geometry stays the same;
+    inverse: the argsort of the permutation."""
+
+    def __init__(self, permutation: Tuple[int, int, int], **kwargs):
+        super().__init__(**kwargs)
+        self.permutation = tuple(permutation)
+
+    def apply_transform(self, subject):
+        perm = (0,) + tuple(p + 1 for p in self.permutation)
+        for image in self.get_images(subject):
+            image.set_data(np.transpose(np.asarray(image.data), perm))
+            affine = image.affine.copy()
+            affine[:3, :3] = affine[:3, list(self.permutation)]
+            image.affine = affine
+        return None
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        inverse_permutation = tuple(int(i) for i in np.argsort(self.permutation))
+        return PermuteDimensions(permutation=inverse_permutation, **self._sel())
+
+
+class RandomPermuteDimensions(RandomTransform, SpatialTransform):
+    """A random order of the spatial dims; the concrete PermuteDimensions
+    lands on the tape, so the inversion is exact."""
+
+    def __call__(self, subject, record: bool = True):
+        if isinstance(subject, (list, tuple)):
+            return [self(s, record=record) for s in subject]
+        if self.p < 1.0 and self.rng.random() > self.p:
+            return subject
+        perm = [0, 1, 2]
+        self.rng.shuffle(perm)
+        concrete = PermuteDimensions(tuple(perm), **self._sel())
+        return concrete(subject, record=record)
+
+    def apply_transform(self, subject):  # pragma: no cover
+        raise RuntimeError("dispatches via __call__")

@@ -302,6 +302,45 @@ def test_forward_kernel_at_msseg2_classes_on_card(cuda_device, dtype, shape):
     assert torch.equal(conv3x3_s1p1(x, k), conv3x3_s1p1_plain(x, k))
 
 
+# msseg2's train step at the training batch of 4 patches gives the gradient
+# kernels new classes: dW at Cin 2 (the convs that read the network's input,
+# staged by plain loads) and at 240 -> 120 on a 6^3 volume (27 * 240 * 120
+# sums per split of the workspace), dX at 120 -> 240 (the conv 240 -> 120
+# run on the flipped kernel, six Cout chunks) and both on a 3^3 volume, one
+# partly masked tile per sample.
+MSSEG2_GRAD_SHAPES = [(4, 12, 10, 9, 2, 40), (4, 6, 6, 6, 240, 120), (4, 6, 6, 6, 200, 80),
+                      (4, 3, 3, 3, 120, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MSSEG2_GRAD_SHAPES)
+def test_gradient_kernels_at_msseg2_training_classes_on_card(cuda_device, dtype, shape):
+    """dX and dW against their plain versions on random inputs, within 1e-5
+    (f32, 3xTF32) or one bf16 rounding of max|ref|; dW twice, bitwise
+    equal; small integers bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, w, h, d, cin, cout = shape
+    x = torch.from_numpy(_normal((n, w, h, d, cin), 33)).to(cuda_device, dtype)
+    k = torch.from_numpy(_normal((3, 3, 3, cin, cout), 34) / np.float32(np.sqrt(27 * cin)))
+    k = k.to(cuda_device, dtype)
+    g = torch.from_numpy(_normal((n, w, h, d, cout), 35)).to(cuda_device, dtype)
+    dx, dk, dk_again = conv3x3_s1p1_dx(g, k), conv3x3_s1p1_dw(x, g), conv3x3_s1p1_dw(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk_again)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for out, ref in ((dx, conv3x3_s1p1_dx_plain(g.float(), k.float())),
+                     (dk, conv3x3_s1p1_dw_plain(x.float(), g.float()))):
+        assert out.shape == ref.shape and out.dtype == dtype
+        err = (out.float() - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item(), err / ref.abs().max().item()
+    rng = np.random.default_rng(36)
+    x, k, g = (torch.from_numpy(rng.integers(-4, 5, s).astype(np.float32)).to(cuda_device, dtype)
+               for s in ((n, w, h, d, cin), (3, 3, 3, cin, cout), (n, w, h, d, cout)))
+    assert torch.equal(conv3x3_s1p1_dx(g, k), conv3x3_s1p1_dx_plain(g, k))
+    assert torch.equal(conv3x3_s1p1_dw(x, g), conv3x3_s1p1_dw_plain(x, g))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["conv3d", "conv_transpose3d"])
 def test_library_convs_stay_f32_with_global_tf32_on(cuda_device, kind):

@@ -199,8 +199,12 @@ def test_modular_unet_names_samplers_and_widths():
     plain.train()
     plain(torch.zeros(1, 4, 4, 4, 1))
     remat = ModularUNet(1, 3, filters=5, depth=2, remat=True)
-    with pytest.raises(NotImplementedError, match="msseg2 training"):
-        remat(torch.zeros(1, 4, 4, 4, 1))
+    remat.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(_input((1, 4, 4, 4, 1), 3))
+    out = remat(x)
+    out.sum().backward()
+    assert torch.equal(out, plain(x)) and torch.isfinite(out).all()
+    assert all(p.grad is not None for p in remat.parameters())
 
 
 def test_segmodel_initializes_every_blurred_conv():
