@@ -9,17 +9,26 @@ fold and flip/orientation ensembles, bit-packed label fetch, host
 post-processing), msseg2 serving (the geometry transforms, sliding-window
 PatchPredict, ModularUNet with blurred strided and transposed convs),
 msseg2's training data path (the random transforms, the patch queue and
-its samplers) and the train step (make_train_step,
-HybridLogisticDiceLoss, Adam and SGD; ModularUNet's rematerialized
-blocks). The 3x3x3 convs and
-their input and weight gradients run on hand-written CUDA kernels
+its samplers), the train step (make_train_step, HybridLogisticDiceLoss,
+Adam and SGD; ModularUNet's rematerialized blocks) and the training loop
+around it: SubjectFolder with its loaders and cohort filters, the Context
+and its checkpoints, SegmentationTrainer with scheduled evaluators, and
+FileLogger. The configurations of dmri_hippo and msseg2 live in
+``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
+and weight gradients run on hand-written CUDA kernels
 (csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
 from .core import Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti, write_nifti
 from .criterions import HybridLogisticDiceLoss
-from .data import (LabelSampler, PatchDataLoader, PatchQueue, RandomSampler, SequentialSampler,
-                   StandardDataLoader, UniformSampler, WeightedSampler)
+from .data import (AnyFilter, AttributeLoader, ComposeFilters, ComposeLoaders, ForbidAttributes,
+                   ImageLoader, LabelSampler, NegateFilter, PatchDataLoader, PatchQueue,
+                   RandomFoldFilter, RandomSampler, RandomSelectFilter, RequireAttributes,
+                   SequentialSampler, StandardDataLoader, StratifiedFilter, SubjectFolder,
+                   TensorLoader, UniformSampler, WeightedSampler)
+from .evaluators import (ContourImageEvaluator, LabeledTensor, LabelMapEvaluator,
+                         SegmentationEvaluator)
+from .loggers import FileLogger, NonLogger
 from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, NestedResUNet,
                      WSConv3d, flax_to_state_dict, state_dict_to_flax)
 from .models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientations
@@ -27,6 +36,8 @@ from .post_processing import (keep_components, remove_holes, remove_small_compon
                               sort_by_size, unsort_by_size)
 from .prediction import PatchPredict, Predictor, StandardPredict, add_evaluation_labels
 from .training import SGD, Adam, SegModel, collate_to_device, create_train_state, make_train_step
+from .training.context import Context, Ref, list_checkpoint_files
+from .training.trainer import ScheduledEvaluation, SegmentationTrainer
 from .transforms import *  # noqa: F401,F403
 from . import post_processing
 

@@ -401,3 +401,15 @@ def collate_subjects(
                 [_cast(s[name].data) for s in subjects], axis=0)
             batch[name] = torch.as_tensor(stacked, device=device)
     return batch
+
+
+def slice_volume(data: np.ndarray, channel: int, plane: str, slice_id: int) -> np.ndarray:
+    """Extract a 2D slice from (C, W, H, D) data."""
+    arr = np.asarray(data)
+    if plane in ("sagittal", "W", 0):
+        return arr[channel, slice_id, :, :]
+    if plane in ("coronal", "H", 1):
+        return arr[channel, :, slice_id, :]
+    if plane in ("axial", "D", 2):
+        return arr[channel, :, :, slice_id]
+    raise ValueError(f"Unknown plane {plane}")

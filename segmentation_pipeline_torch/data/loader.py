@@ -30,8 +30,8 @@ from ..transforms.spatial import Crop
 def _no_processes(use_processes: bool) -> None:
     if use_processes:
         raise NotImplementedError(
-            "use_processes=True (loader worker processes) waits for the data-ingestion "
-            "slice (ROADMAP, Queue 1 item 7: data ingestion)")
+            "use_processes=True (loader worker processes) waits for the port of "
+            "ROADMAP, Queue 1 item 7: process workers and the dataset fingerprint")
 
 
 class RandomSampler:

@@ -191,7 +191,8 @@ class PatchPredict(Predictor):
     for later subjects and calls.
     """
 
-    # set by the trainer's device-confusion sweep in the JAX package
+    # set by the JAX trainer's device-confusion sweep; the port's trainer
+    # raises on such a sweep (training/trainer.py)
     _confusion_plan = None
 
     def __init__(self, image_names: Sequence[str] = ("X",), patch_batch_size: int = 16,
@@ -271,8 +272,9 @@ class PatchPredict(Predictor):
     def predict(self, model, subjects, label_attributes=None):
         if self._confusion_plan is not None:
             raise NotImplementedError(
-                "PatchPredict's device-confusion sweep waits for the trainer's slice "
-                "(ROADMAP, Queue 1: sustained training loop)")
+                "PatchPredict's device-confusion sweep waits for the port of ROADMAP "
+                "Queue 1 item 3 (native labeller, device post-processing and device "
+                "confusion)")
         if self.device_postprocess and subjects:
             if not self.device_argmax:
                 raise ValueError(

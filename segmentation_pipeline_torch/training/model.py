@@ -100,9 +100,11 @@ class SegModel:
             return {}
         return self.module.state_dict()
 
-    def load_state_dict(self, state: Dict[str, torch.Tensor]):
+    def load_state_dict(self, state):
+        """Tensors or numpy arrays (a checkpoint's host copies), by
+        state-dict name."""
         if state:
-            self.module.load_state_dict(state)
+            self.module.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
             self.initialized = True
 
     @property

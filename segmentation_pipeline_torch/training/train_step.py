@@ -123,14 +123,19 @@ def collate_to_device(batch_cf: Dict[str, Any], device=None) -> Dict[str, torch.
     unless ``device`` says otherwise). float64 becomes float32; float32,
     bfloat16, float16 and integer arrays keep their dtype (uint8 label ids
     ship as they are); 5-D arrays (N, C, W, H, D) become (N, W, H, D, C),
-    contiguous."""
+    contiguous. To the card, each array is staged in pinned memory and
+    copied without blocking the host, in order on the current stream: a
+    batch uploaded while a train step runs does not wait for the step."""
     device = resolve_device(device)
     out = {}
     for key, value in batch_cf.items():
         tensor = torch.as_tensor(value)
         if tensor.dtype == torch.float64:
             tensor = tensor.float()
-        tensor = tensor.to(device)
+        if device.type == "cuda":
+            tensor = tensor.pin_memory().to(device, non_blocking=True)
+        else:
+            tensor = tensor.to(device)
         if tensor.dim() == 5:
             tensor = to_channels_last(tensor).contiguous()
         out[key] = tensor

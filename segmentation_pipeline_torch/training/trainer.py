@@ -1,0 +1,539 @@
+"""SegmentationTrainer: the scheduled-evaluation training loop.
+
+Ported from segmentation_pipeline_tpu/training/trainer.py on its default
+path (no device cache, no device augmentation, no mesh): iteration-based
+training with interval-scheduled evaluators over named cohorts, model
+scoring and best-checkpoint tracking, early stopping, a wall-clock budget
+with a save buffer, and cooperative SIGINT/SIGTERM/SIGUSR2 preemption,
+around the eager train step of training/train_step.py.
+
+The host work runs in the JAX package's order, so a seeded run draws the
+same host randomness there and here: ``training_dataset[0]`` before the
+loop, the first batch before the first step, the next batch after each
+step, then the evaluators. One-hot labels ship as uint8 class ids and expand
+on the device; under bfloat16 the input is cast on the host first. Both go
+through pinned memory without blocking the host, so the next batch uploads
+while the step runs. On iterations with nothing scheduled the loss values
+are read one iteration late, from a copy that waits only for their own step.
+Dropout draws from one ``torch.Generator`` on the model's device, seeded
+from the iteration the run starts at.
+
+What the JAX trainer also does and the port does not yet raises
+``NotImplementedError`` with the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import math
+import os
+import signal
+import sys
+import threading
+import time
+import traceback
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..data.loader import DataLoaderFactory
+from ..data.subject_filters import AnyFilter, RequireAttributes
+from ..evaluators import Evaluator, SegmentationEvaluator
+from ..loggers import Logger, NonLogger
+from ..ops.bitpack import start_fetch
+from ..prediction import Predictor, _attach_prediction, add_evaluation_labels
+from ..utils.misc import auto_str, time_str_to_seconds
+from ..utils.timer import Timer
+from .model import to_channels_first
+from .train_step import (TrainState, _normalize_compute_dtype, collate_to_device,
+                         create_train_state, make_train_step)
+
+EXIT = threading.Event()
+EXIT.clear()
+
+
+def _clean_exit_handler(signum, frame):
+    EXIT.set()
+    print("Exiting cleanly", flush=True)
+
+
+def install_signal_handlers():
+    """SIGINT/SIGTERM/SIGUSR2 -> clean-exit event (SLURM preemption). Safe
+    to call from the main thread only; the trainer calls it lazily. Returns
+    {signum: previous handler} so train() can restore them on exit."""
+    previous = {}
+    previous[signal.SIGINT] = signal.signal(signal.SIGINT, _clean_exit_handler)
+    previous[signal.SIGTERM] = signal.signal(signal.SIGTERM, _clean_exit_handler)
+    if os.name != "nt":
+        previous[signal.SIGUSR2] = signal.signal(signal.SIGUSR2, _clean_exit_handler)
+    return previous
+
+
+def restore_signal_handlers(previous):
+    for signum, handler in (previous or {}).items():
+        try:
+            signal.signal(signum, handler)
+        except (ValueError, TypeError):  # non-main thread / exotic handler
+            pass
+
+
+class ScheduledEvaluation:
+    def __init__(self, evaluator: Evaluator, log_name: str,
+                 cohorts: Sequence[str] = None, subjects: Sequence[str] = None,
+                 interval: int = 1):
+        assert not (cohorts and subjects), \
+            "One of cohorts or subjects may be provided, but not both."
+        self.evaluator = evaluator
+        self.log_name = log_name
+        self.cohorts = cohorts
+        self.subjects = subjects
+        self.interval = interval
+
+    def __repr__(self):
+        return auto_str(self)
+
+
+def is_exact_onehot(y: np.ndarray, axis: int = 1) -> bool:
+    """True when ``y`` is exactly one-hot over ``axis`` with 1 < C <= 255:
+    the labels may then cross to the device as uint8 class ids, bit-identical
+    on expansion."""
+    n_classes = int(y.shape[axis])
+    return (1 < n_classes <= 255
+            and bool(np.all((y == 0) | (y == 1)))
+            and bool(np.all(y.sum(axis=axis) == 1)))
+
+
+def stack_batch(subjects, compute_dtype=None):
+    """X and y of a batch of subjects as the trainer ships them: X stacked
+    channel-first as float32 and cast on the host to ``compute_dtype``
+    (numpy has no bfloat16, so X is a torch tensor); y as uint8 class ids
+    (N, W, H, D) when it is exactly one-hot, else float32 (N, C, W, H, D).
+    Returns the host batch and the number of classes of the ids (None for
+    float y)."""
+    X = np.stack([np.asarray(s["X"].data) for s in subjects]).astype(np.float32)
+    y = np.stack([np.asarray(s["y"].data) for s in subjects]).astype(np.float32)
+    x = torch.from_numpy(X)
+    dtype = _normalize_compute_dtype(compute_dtype)
+    if dtype is not None:
+        x = x.to(dtype)  # the rounding the step's own cast applies
+    n_classes = None
+    if is_exact_onehot(y, axis=1):
+        n_classes = y.shape[1]
+        y = np.argmax(y, axis=1).astype(np.uint8)
+    return {"X": x, "y": y}, n_classes
+
+
+def upload_batch(batch_cf, n_classes, device):
+    """A host batch of ``stack_batch`` to the device, channels-last
+    (``collate_to_device``: pinned, without blocking the host), class ids
+    expanded there to float32 one-hot."""
+    batch = collate_to_device(batch_cf, device=device)
+    if n_classes is not None:  # (N, W, H, D) ids -> (N, W, H, D, C)
+        batch["y"] = F.one_hot(batch["y"].long(), n_classes).float()
+    return batch
+
+
+def device_confusion_sweep(scheduled, predictor) -> bool:
+    """Whether the JAX trainer would reduce this sweep's confusion counts on
+    the device (its training/device_confusion.py::sweep_spec): the predictor
+    argmaxes on the device and every evaluator is a SegmentationEvaluator
+    on ('y_pred_eval', 'y_eval')."""
+    return bool(scheduled) and getattr(predictor, "device_argmax", False) and all(
+        isinstance(s.evaluator, SegmentationEvaluator)
+        and s.evaluator.prediction_label_map_name == "y_pred_eval"
+        and s.evaluator.target_label_map_name == "y_eval" for s in scheduled)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} waits for the port of ROADMAP Queue 1 {item}")
+
+
+def _to_torch(value):
+    """A checkpoint's host copies back to tensors (new memory)."""
+    if isinstance(value, np.ndarray):
+        return torch.tensor(value)
+    if isinstance(value, dict):
+        return {k: _to_torch(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_torch(v) for v in value)
+    return value
+
+
+class SegmentationTrainer:
+    def __init__(self, training_batch_size: int, save_rate: int,
+                 scoring_interval: int, scoring_function: Callable,
+                 one_time_evaluators: Sequence[ScheduledEvaluation],
+                 training_evaluators: Sequence[ScheduledEvaluation],
+                 validation_evaluators: Sequence[ScheduledEvaluation],
+                 max_iterations_with_no_improvement: int,
+                 train_predictor: Predictor, validation_predictor: Predictor,
+                 train_dataloader_factory: DataLoaderFactory,
+                 validation_dataloader_factory: DataLoaderFactory,
+                 mesh=None, device_augmentation: Optional[dict] = None,
+                 spatial_axis: Optional[str] = None,
+                 compute_dtype: Optional[str] = None,
+                 device_cache: bool = False,
+                 device_confusion: Optional[bool] = None):
+        if device_cache:
+            raise _not_ported("device_cache=True", "item 12 (device training levers)")
+        if device_augmentation is not None:
+            raise _not_ported("device_augmentation", "item 12 (device training levers)")
+        if mesh is not None or spatial_axis is not None:
+            raise _not_ported("mesh / spatial_axis", "item 10 (multi-device)")
+        if getattr(train_predictor, "refine_image", None) is not None:
+            raise _not_ported("refine_image (cascade)", "item 5 (cascade)")
+        self.training_batch_size = training_batch_size
+        self.save_rate = save_rate
+        self.scoring_interval = scoring_interval
+        self.scoring_function = scoring_function
+        # stored but never executed, as in the JAX package
+        self.one_time_evaluators = one_time_evaluators
+        self.training_evaluators = training_evaluators
+        self.validation_evaluators = validation_evaluators
+        self.max_iterations_with_no_improvement = max_iterations_with_no_improvement
+        self.train_predictor = train_predictor
+        self.validation_predictor = validation_predictor
+        self.train_dataloader_factory = train_dataloader_factory
+        self.validation_dataloader_factory = validation_dataloader_factory
+        # mixed precision: the network runs forward and backward in this
+        # dtype ('bfloat16'); parameters, optimizer state, BatchNorm
+        # statistics and the loss stay float32. A string keeps the trainer
+        # definition picklable in checkpoints.
+        self.compute_dtype = compute_dtype
+        # None/True: a sweep the JAX trainer would reduce on the device
+        # raises until that reduction is ported; False: the host path
+        self.device_confusion = device_confusion
+
+        self.iteration = 0
+        self.max_score = float("-inf")
+        self.max_score_iteration = -1
+        self._train_state: Optional[TrainState] = None
+        self._restored_opt_state = None
+
+    # ---- checkpoint state ---------------------------------------------
+    def state_dict(self):
+        """Live references: Context.snapshot takes the host copies."""
+        state = {
+            "iteration": self.iteration,
+            "max_score": self.max_score,
+            "max_score_iteration": self.max_score_iteration,
+        }
+        if self._train_state is not None:
+            state["opt_state"] = self._train_state.opt_state.state_dict()
+        return state
+
+    def load_state_dict(self, state):
+        self.iteration = state["iteration"]
+        self.max_score = state["max_score"]
+        self.max_score_iteration = state["max_score_iteration"]
+        # loaded into the torch optimizer at the first step
+        self._restored_opt_state = state.get("opt_state")
+
+    def _optimizer_for(self, model, optimizer):
+        """The torch optimizer of this run: a checkpoint's state loaded into
+        a fresh one, else the live one of a previous train() call while it
+        still steps this model's parameters, else a fresh one."""
+        params = list(model.params.values())
+        live = self._train_state.opt_state if self._train_state is not None else None
+        if self._restored_opt_state is None and live is not None:
+            live_params = [p for group in live.param_groups for p in group["params"]]
+            if isinstance(live, optimizer.optimizer_class) and len(live_params) == len(params) \
+                    and all(a is b for a, b in zip(live_params, params)):
+                return live
+            print("trainer: optimizer/param structure changed since the previous train() "
+                  "call — reinitializing optimizer state")
+        opt = create_train_state(model, optimizer, None).opt_state
+        if self._restored_opt_state is not None:
+            opt.load_state_dict(_to_torch(self._restored_opt_state))
+            self._restored_opt_state = None
+        return opt
+
+    # ---- training ------------------------------------------------------
+    def train(self, context, max_iterations: int = None,
+              max_training_time: Optional[Union[int, str]] = None,
+              preload_training_data: bool = False,
+              preload_validation_data: bool = False,
+              num_workers: int = 0, validation_batch_size: int = 16,
+              logger: Logger = None):
+        logger = logger or NonLogger()
+        # a previous signal-stopped run must not stop this one
+        EXIT.clear()
+        prev_signal_handlers = None
+        if threading.current_thread() is threading.main_thread():
+            prev_signal_handlers = install_signal_handlers()
+
+        if max_training_time is not None:
+            training_time = time_str_to_seconds(max_training_time)
+            save_buffer = min(int(training_time * 0.1), 5 * 60)
+            stop_time = time.time() + training_time - save_buffer
+        else:
+            stop_time = math.inf
+
+        print("Initializing logger.")
+        logger.setup(context)
+
+        training_dataset = context.dataset.get_cohort_dataset("training")
+        if preload_training_data:
+            t = time.time()
+            print("Preloading training data...")
+            training_dataset.preload_subjects()
+            print(f"Done. Took {round(time.time() - t, 2)}s")
+
+        for scheduled in self.validation_evaluators:
+            if scheduled.cohorts is None and scheduled.subjects is None:
+                raise ValueError(
+                    f"Validation evaluator {scheduled.log_name!r} needs cohorts= or "
+                    f"subjects= — with neither it would silently never run (training "
+                    f"evaluators may omit both; they evaluate the current batch)")
+        validation_filter = self.get_filter_from_scheduled_evaluations(
+            context.dataset, self.validation_evaluators)
+        validation_dataset = context.dataset.get_cohort_dataset(validation_filter)
+        if preload_validation_data:
+            t = time.time()
+            print("Preloading validation data...")
+            validation_dataset.preload_and_transform_subjects()
+            print(f"Done. Took {round(time.time() - t, 2)}s")
+            # static subjects: the predictor may keep their device uploads
+            if getattr(self.validation_predictor, "cache_inputs", False) is None:
+                self.validation_predictor.cache_inputs = True
+
+        training_dataloader = self.train_dataloader_factory.get_data_loader(
+            dataset=training_dataset, batch_size=self.training_batch_size,
+            num_workers=num_workers)
+
+        def infinite(loader):
+            while True:
+                yield from loader
+
+        training_iterator = infinite(training_dataloader)
+
+        # label attributes for wrapping raw predictions as LabelMaps
+        sample = training_dataset[0]
+        label_attributes = dict(sample["y"].metadata)
+
+        model = context.model
+        # validation sweeps run through the predictors, which honor
+        # model.compute_dtype: keep them in the training step's precision
+        # (an explicit model setting wins)
+        if self.compute_dtype is not None \
+                and getattr(model, "compute_dtype", "absent") is None:
+            model.compute_dtype = self.compute_dtype
+        criterion = context.criterion
+        optimizer = context.optimizer
+        sagittal_split = getattr(self.train_predictor, "sagittal_split", False)
+
+        train_step = None
+        timer = Timer()
+        generator = torch.Generator(device=model.device).manual_seed(self.iteration)
+        max_iterations = int(max_iterations if max_iterations is not None else 10 ** 9)
+
+        def fetch_and_upload():
+            """Pull the next batch from the host pipeline and start its
+            upload. Called while the device runs the current step, so the
+            upload rides under it."""
+            subjects = next(training_iterator)
+            return subjects, upload_batch(*stack_batch(subjects, self.compute_dtype),
+                                          device=model.device)
+
+        pending = None  # (subjects, device batch) prefetched last iteration
+        deferred = None  # the loss record of a logging-only iteration
+
+        def flush_deferred():
+            nonlocal deferred
+            if deferred is None:
+                return
+            vals = deferred["fetch"]()
+            rec = {k: float(v) for k, v in zip(deferred["keys"], vals)}
+            rec["timer"] = deferred["timer"]
+            rec["iteration"] = deferred["iteration"]
+            logger.log(rec)
+            deferred = None
+
+        try:
+            for _ in range(max_iterations):
+                timer.start()
+
+                if pending is None:
+                    subjects, batch = fetch_and_upload()
+                else:
+                    subjects, batch = pending
+                timer.stamp("data_loading")
+
+                if train_step is None:
+                    model.ensure_initialized()
+                    self._train_state = TrainState(
+                        step=self.iteration, params=model.params,
+                        batch_stats=model.batch_stats,
+                        opt_state=self._optimizer_for(model, optimizer))
+                    train_step = make_train_step(model.module, criterion, optimizer,
+                                                 sagittal_split=sagittal_split,
+                                                 compute_dtype=self.compute_dtype)
+
+                self._train_state, loss_dict, y_pred_cl = train_step(
+                    self._train_state, batch, generator)
+
+                # while the step runs on the device, load and upload the next batch
+                try:
+                    pending = fetch_and_upload()
+                except StopIteration:  # infinite iterator in practice
+                    pending = None
+                timer.stamp("next_batch_prefetch")
+
+                loss_keys = list(loss_dict)
+                loss_stack = torch.stack([loss_dict[k] for k in loss_keys])
+
+                # last iteration's deferred record first: its step has ended
+                # or ends while this one queues
+                flush_deferred()
+
+                scheduled_train = [s for s in self.training_evaluators
+                                   if self.iteration % s.interval == 0]
+                scheduled_validation = [s for s in self.validation_evaluators
+                                        if self.iteration % s.interval == 0]
+                # a logging-only iteration reads its loss values one iteration
+                # late (the values are identical; only when the host reads
+                # them changes)
+                busy = (
+                    bool(scheduled_train)
+                    or bool(scheduled_validation)
+                    or self.iteration % self.save_rate == 0
+                    or (self.scoring_function is not None
+                        and self.iteration % self.scoring_interval == 0))
+                if not busy:
+                    # logging-only iteration: read the values next iteration
+                    timer.stamp("train_step")
+                    deferred = {"keys": loss_keys, "fetch": start_fetch(loss_stack),
+                                "timer": dict(timer.timestamps),
+                                "iteration": self.iteration}
+                else:
+                    loss_vals = loss_stack.cpu().numpy()
+                    loss_dict = {k: float(v) for k, v in zip(loss_keys, loss_vals)}
+                    timer.stamp("train_step", sync_on=y_pred_cl)
+
+                # scheduled training evaluators see the train-mode predictions
+                training_evaluations = {}
+                if scheduled_train:
+                    y_pred_cf = to_channels_first(y_pred_cl).cpu().numpy()
+                    for i, subject in enumerate(subjects):
+                        _attach_prediction(subject, y_pred_cf[i], label_attributes)
+                    add_evaluation_labels(subjects)
+                for scheduled in scheduled_train:
+                    training_evaluations[scheduled.log_name] = scheduled.evaluator(subjects)
+                    timer.stamp(f"evaluation.{scheduled.log_name}")
+
+                # scheduled validation sweep
+                validation_evaluations = {}
+                if scheduled_validation:
+                    if self.device_confusion is not False and device_confusion_sweep(
+                            scheduled_validation, self.validation_predictor):
+                        raise _not_ported(
+                            "The device confusion reduction of a validation sweep (a "
+                            "device_argmax predictor with only SegmentationEvaluators; pass "
+                            "device_confusion=False for the host path)",
+                            "item 3 (native labeller and device post-processing)")
+                    validation_filter = self.get_filter_from_scheduled_evaluations(
+                        context.dataset, scheduled_validation)
+                    validation_dataset.set_cohort(validation_filter)
+                    validation_dataloader = self.validation_dataloader_factory.get_data_loader(
+                        dataset=validation_dataset, batch_size=validation_batch_size,
+                        num_workers=num_workers)
+                    validation_subjects = []
+                    for val_subjects in validation_dataloader:
+                        val_subjects, _ = self.validation_predictor.predict(
+                            model, val_subjects, label_attributes=label_attributes)
+                        add_evaluation_labels(val_subjects)
+                        validation_subjects += val_subjects
+                    validation_subjects_map = {s["name"]: s for s in validation_subjects}
+                    timer.stamp("model_forward_evaluation")
+
+                    for scheduled in scheduled_validation:
+                        if scheduled.cohorts is not None:
+                            cohort_evaluations = {}
+                            validation_evaluations[scheduled.log_name] = cohort_evaluations
+                            for cohort_name in scheduled.cohorts:
+                                subject_filter = validation_dataset.cohorts[cohort_name]
+                                filtered = subject_filter(validation_subjects)
+                                # always produce the cohort key: scoring
+                                # functions index it
+                                cohort_evaluations[cohort_name] = scheduled.evaluator(filtered)
+                                timer.stamp(f"evaluation.{scheduled.log_name}.{cohort_name}")
+                        elif scheduled.subjects is not None:
+                            filtered = [validation_subjects_map[name]
+                                        for name in scheduled.subjects]
+                            validation_evaluations[scheduled.log_name] = \
+                                scheduled.evaluator(filtered)
+                            timer.stamp(f"evaluation.{scheduled.log_name}")
+
+                if busy:
+                    log_dict = {**loss_dict, **training_evaluations,
+                                **validation_evaluations}
+
+                if self.iteration % self.save_rate == 0:
+                    logger.save_context(context, "checkpoints/", self.iteration)
+                    timer.stamp("save_checkpoint")
+
+                # scoring_function=None disables scoring, best-checkpoint
+                # tracking and score-based early stopping
+                if (self.scoring_function is not None
+                        and self.iteration % self.scoring_interval == 0):
+                    new_score = float(self.scoring_function(log_dict))
+                    log_dict["model_score"] = new_score
+                    if new_score > self.max_score:
+                        self.max_score = new_score
+                        self.max_score_iteration = self.iteration
+                        logger.save_context(context, "best_checkpoints/", self.iteration)
+                        timer.stamp("save_best_checkpoint")
+
+                if busy:
+                    log_dict["timer"] = dict(timer.timestamps)
+                    log_dict["iteration"] = self.iteration
+                    logger.log(log_dict)
+
+                iterations_with_no_improvement = self.iteration - self.max_score_iteration
+                if (self.scoring_function is not None and
+                        iterations_with_no_improvement > self.max_iterations_with_no_improvement):
+                    print(f"Training stopped on iteration {self.iteration} due to not "
+                          f"improving for {iterations_with_no_improvement} iterations.")
+                    break
+
+                if EXIT.is_set() or time.time() > stop_time:
+                    if EXIT.is_set():
+                        print("Training stopped early due to manual exit signal.")
+                    else:
+                        print("Training time expired.")
+                    break
+
+                self.iteration += 1
+
+            flush_deferred()
+            print("Saving context...")
+            logger.save_context(context, "checkpoints/", self.iteration)
+        finally:
+            # hand the process's signal handling back
+            restore_signal_handlers(prev_signal_handlers)
+            # drain pending checkpoint writes: the exit checkpoint must be
+            # durable when train() returns. Duck-typed loggers may not
+            # define close().
+            close = getattr(logger, "close", None)
+            if close is not None:
+                # sampled here: inside the except below it would be the
+                # close failure
+                unwinding = sys.exc_info()[0] is not None
+                try:
+                    close()
+                except Exception:
+                    if not unwinding:
+                        raise
+                    # never mask the training exception with a teardown failure
+                    print("Warning: logger close failed while handling an earlier error:",
+                          flush=True)
+                    traceback.print_exc()
+
+    def get_filter_from_scheduled_evaluations(self, dataset, scheduled_evaluations):
+        filters = []
+        for scheduled in scheduled_evaluations:
+            if scheduled.cohorts is not None:
+                filters += [dataset.cohorts[name] for name in scheduled.cohorts]
+            elif scheduled.subjects is not None:
+                filters.append(RequireAttributes({"name": scheduled.subjects}))
+        return AnyFilter(filters)

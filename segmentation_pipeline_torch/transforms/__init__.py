@@ -4,11 +4,11 @@ from .base import (Compose, IntensityTransform, LabelTransform, OneOf, RandomTra
 from .intensity import (RandomBiasField, RandomBlur, RandomGamma, RandomNoise, ReplaceNan,
                         RescaleIntensity, SetDataType)
 from .label import CustomArgMax, CustomOneHot, CustomRemapLabels, get_mask_from_masking_method
-from .misc import ImageFromLabels
+from .misc import FindInterestingSlice, ImageFromLabels
 from .random_spatial import (Affine, ElasticDeformation, RandomAffine, RandomElasticDeformation,
                              RandomFlip, invert_displacement_field_voxels)
-from .spatial import (Crop, CropOrPad, CropToMask, EnforceConsistentAffine, Flip, MinSizePad, Pad,
-                      Resample, TargetResample, resample_array)
+from .spatial import (CopyAffine, Crop, CropOrPad, CropToMask, EnforceConsistentAffine, Flip,
+                      MinSizePad, Pad, Resample, TargetResample, resample_array)
 from .structural import (ConcatenateImages, CopyProperty, PermuteDimensions,
                          RandomPermuteDimensions, RenameProperty, SplitImage)
 
@@ -17,9 +17,10 @@ __all__ = ["Compose", "IntensityTransform", "LabelTransform", "OneOf", "RandomTr
            "filter_records", "filter_transform", "get_rng", "invert_records", "seed_all",
            "RandomBiasField", "RandomBlur", "RandomGamma", "RandomNoise", "ReplaceNan",
            "RescaleIntensity", "SetDataType", "CustomArgMax", "CustomOneHot",
-           "CustomRemapLabels", "get_mask_from_masking_method", "ImageFromLabels", "Affine",
+           "CustomRemapLabels", "get_mask_from_masking_method", "FindInterestingSlice",
+           "ImageFromLabels", "Affine",
            "ElasticDeformation", "RandomAffine", "RandomElasticDeformation", "RandomFlip",
-           "invert_displacement_field_voxels", "Crop", "CropOrPad", "CropToMask",
+           "invert_displacement_field_voxels", "CopyAffine", "Crop", "CropOrPad", "CropToMask",
            "EnforceConsistentAffine", "Flip", "MinSizePad", "Pad", "Resample", "TargetResample",
            "resample_array", "ConcatenateImages", "CopyProperty", "PermuteDimensions",
            "RandomPermuteDimensions", "RenameProperty", "SplitImage"]

@@ -1,6 +1,7 @@
-"""``ImageFromLabels``, ported from segmentation_pipeline_tpu/transforms/misc.py:
-the weight image built from label masks that msseg2's WeightedSampler draws
-patch centres from (``patch_probability``).
+"""Ported from segmentation_pipeline_tpu/transforms/misc.py:
+``ImageFromLabels``, the weight image built from label masks that msseg2's
+WeightedSampler draws patch centres from (``patch_probability``), and
+``FindInterestingSlice``, which ContourImageEvaluator ranks slices with.
 """
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 
-from ..core.subject import ScalarImage
+from ..core.subject import LabelMap, ScalarImage
 from .base import Transform
 
 TypeLabelWeights = Tuple[str, Union[int, str], float]
@@ -47,4 +48,42 @@ class ImageFromLabels(Transform):
 
         affine = subject.get_first_image().affine
         subject[self.new_image_name] = ScalarImage(tensor=output, affine=affine)
+        return None
+
+
+class FindInterestingSlice(Transform):
+    """Rank slices per plane by label mass; attaches
+    'interesting_slice_ids'/'interesting_slice_counts' dicts keyed by plane."""
+
+    PLANES = ("Saggital", "Coronal", "Axial")
+
+    def apply_transform(self, subject):
+        for image in self.get_images(subject):
+            if not isinstance(image, LabelMap):
+                continue
+            data = np.asarray(image.data)
+            if image.get("one_hot", False):
+                mask = np.argmax(data, axis=0) != 0
+            else:
+                mask = data[0] != 0
+
+            ids_out, counts_out = {}, {}
+            for plane, where in zip(self.PLANES, np.where(mask)):
+                slice_ids, counts = np.unique(where, return_counts=True)
+                order = np.argsort(-counts, kind="stable")
+                ids_out[plane] = slice_ids[order]
+                counts_out[plane] = counts[order]
+            image["interesting_slice_ids"] = ids_out
+            image["interesting_slice_counts"] = counts_out
+        return None
+
+    def is_invertible(self):
+        return True
+
+    def inverse(self, args=None):
+        return _Identity()
+
+
+class _Identity(Transform):
+    def apply_transform(self, subject):
         return None

@@ -426,3 +426,24 @@ class EnforceConsistentAffine(Transform):
                 continue
             image.affine = source.affine.copy()
         return None
+
+
+class CopyAffine(Transform):
+    """Copy the named image's affine to all images (SubjectFolder's
+    ``ref_img``)."""
+
+    def __init__(self, target: str, **kwargs):
+        super().__init__(**kwargs)
+        self.target = target
+
+    def apply_transform(self, subject):
+        if self.target not in subject:
+            return None
+        source = subject[self.target]
+        # honor include/exclude: CopyAffine(target, exclude=['mask']) must
+        # leave 'mask' untouched
+        for name, image in self.get_images_dict(subject).items():
+            if name == self.target:
+                continue
+            image.affine = source.affine.copy()
+        return None

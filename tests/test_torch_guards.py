@@ -1,5 +1,6 @@
-"""Guards of the port: it imports neither JAX nor the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""Guards of the port: it imports neither JAX nor the JAX package, nor at
+import time the host packages the GPU machine lacks, and its entry points
+run on the card unless the caller asks for the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -46,6 +47,41 @@ def test_importing_every_port_module_loads_no_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_importing_every_port_module_loads_no_optional_host_package():
+    """pandas, matplotlib, PIL, cloudpickle and scikit-learn are imported
+    only where they are used (CSV attributes, StratifiedFilter, contour
+    images, closures in checkpoints), never by importing the port."""
+    optional = ["PIL", "cloudpickle", "matplotlib", "pandas", "sklearn"]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import segmentation_pipeline_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {optional!r})\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_training_loop_defaults_to_cuda(monkeypatch, tmp_path):
+    """A Context with no device puts its network on the card, and the
+    ported configurations' predictors run there: without a GPU, both
+    raise."""
+    from segmentation_pipeline_torch.research.dmri_hippo.configs import main_config
+    from segmentation_pipeline_torch.research.msseg2 import msseg2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    context = tsp.Context(name="card")
+    context.add_component("model", tsp.NestedResUNet, input_channels=1, output_channels=2,
+                          filters=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        context.init_components()
+    for config in (main_config, msseg2):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            config.get_context(variables={"DATASET_PATH": str(tmp_path)})
+        assert config.get_context(device="cpu", variables={"DATASET_PATH": str(tmp_path)})
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -3,7 +3,9 @@
 majority vote, StandardPredict with the sagittal split, the inversion back
 to the scanner grid and the post-processing. JAX's own
 research/dmri_hippo/hippo_inference.py ``inference`` and ``post_process`` on
-JAX ensembles against the port's composition in chip_smoke.py."""
+JAX ensembles against the port's: the ``default`` pipeline of the ported
+configuration (segmentation_pipeline_torch/research/dmri_hippo/configs/
+main_config.py) and the composition in chip_smoke.py."""
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,8 @@ import segmentation_pipeline_tpu as jsp
 from segmentation_pipeline_tpu.models import ensemble as jens
 from segmentation_pipeline_torch import prediction as tpred
 from segmentation_pipeline_torch.models import ensemble as tens
+from segmentation_pipeline_torch.research.dmri_hippo.configs.main_config import \
+    build_transforms as port_transforms
 from test_torch_ensemble import model_pair, near_ties
 
 torch.set_num_threads(2)
@@ -64,8 +68,9 @@ def served():
 
     port_predictor = Recording(tsp.StandardPredict(sagittal_split=True, image_names=["X"],
                                                    device="cpu"))
-    port_subjects = chip_smoke.inference(_subjects(tsp, chip_smoke.default_pipeline(CROP)),
-                                         port_predictor, _tta(tens, [m for _, m in pairs]))
+    port_subjects = chip_smoke.inference(
+        _subjects(tsp, port_transforms(CROP, False)["default"]), port_predictor,
+        _tta(tens, [m for _, m in pairs]))
     port_reports = [chip_smoke.post_process(s["y_pred"]) for s in port_subjects]
     return (pairs, jax_predictor.y_pred, jax_subjects, jax_reports,
             port_predictor.y_pred, port_subjects, port_reports)
@@ -75,7 +80,7 @@ def test_crop_space_labels_match_jax(served):
     """Crop-space labels of the fold-and-flip majority equal JAX's outside
     voxels where some member of some fold is near a tie."""
     pairs, jax_crop, _, _, port_crop, port_subjects, _ = served
-    x = tsp.collate_subjects(_subjects(tsp, chip_smoke.default_pipeline(CROP)), ["X"],
+    x = tsp.collate_subjects(_subjects(tsp, port_transforms(CROP, False)["default"]), ["X"],
                              device="cpu")["X"]
     members = []
     for _, model in pairs:
@@ -93,7 +98,7 @@ def test_inversion_and_post_processing_match_jax_exactly(served):
     """The port's inversion and post-processing on JAX's crop-space
     prediction give JAX's answers exactly, on the original grid."""
     _, jax_crop, jax_subjects, jax_reports, _, _, _ = served
-    subjects = _subjects(tsp, chip_smoke.default_pipeline(CROP))
+    subjects = _subjects(tsp, port_transforms(CROP, False)["default"])
     for s, y in zip(subjects, jax_crop):
         tpred._attach_prediction(s, y, None)
     reports = [chip_smoke.post_process(s["y_pred"])

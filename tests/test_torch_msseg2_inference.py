@@ -17,6 +17,7 @@ import segmentation_pipeline_torch as tsp
 from research.msseg2.competition import ms_inference
 from research.msseg2.msseg2 import build_pipelines
 from segmentation_pipeline_torch import prediction as tpred
+from segmentation_pipeline_torch.research.msseg2.msseg2 import build_pipelines as port_pipelines
 from test_torch_patch_predict import TIE, msseg2_pair
 
 torch.set_num_threads(2)
@@ -68,7 +69,7 @@ def served(tmp_path_factory):
     jax_mask, jax_affine = jsp.read_nifti(out / "sub-0" / "mask.nii.gz")
 
     raw = _raw(tsp)
-    subject = chip_smoke.msseg2_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
+    subject = port_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
     [subject], _ = chip_smoke.competition_predictor(False, device="cpu").predict(model,
                                                                                 [subject])
     port_probs = np.array(subject["y_pred"].data)
@@ -91,7 +92,7 @@ def test_back_to_the_raw_grid_matches_jax_exactly(served):
     prediction give JAX's NIfTI mask exactly."""
     _, jax_probs, jax_mask, jax_affine, _, _ = served
     raw = _raw(tsp)
-    subject = chip_smoke.msseg2_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
+    subject = port_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
     tpred._attach_prediction(subject, jax_probs, None)
     label, _ = chip_smoke.ms_to_raw_grid(subject, raw)
     assert label.data.dtype == np.int32 and label.data.shape == (1, *GRID)
@@ -109,7 +110,7 @@ def test_answer_on_the_raw_grid(served):
     if np.array_equal(port_probs.argmax(0), jax_probs.argmax(0)):
         np.testing.assert_array_equal(port_label.data, jax_mask)
     # device_argmax answers with the full fetch's labels
-    subject = chip_smoke.msseg2_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
+    subject = port_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
     label, _ = chip_smoke.ms_inference(subject, raw, model,
                                        chip_smoke.competition_predictor(True, device="cpu"))
     np.testing.assert_array_equal(label.data, port_label.data)

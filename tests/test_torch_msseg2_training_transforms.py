@@ -21,6 +21,7 @@ from segmentation_pipeline_tpu.transforms import structural as jstructural
 from segmentation_pipeline_torch.transforms import random_spatial as trandom_spatial
 from segmentation_pipeline_torch.transforms import spatial as tspatial
 from segmentation_pipeline_torch.transforms import structural as tstructural
+from segmentation_pipeline_torch.research.msseg2.msseg2 import build_pipelines as port_pipelines
 
 GRID = (20, 18, 14)
 MODULES = {jsp: {"structural": jstructural, "spatial": jspatial,
@@ -147,7 +148,7 @@ def test_warp_round_trip_on_a_ramp(name):
 
 def test_training_pipeline_matches_jax():
     """A raw msseg2 training subject through the port's ``training``
-    transforms (chip_smoke.msseg2_pipelines) and JAX's own
+    transforms (the ported configuration's build_pipelines) and JAX's own
     (research/msseg2/msseg2.py build_pipelines), at one seed: X, y, the
     patch-probability map and the tape are equal; and again at another seed,
     which takes other branches of the OneOf and the random transforms."""
@@ -156,7 +157,7 @@ def test_training_pipeline_matches_jax():
     for seed in (0, 5):
         out = {}
         for pkg, pipeline in ((jsp, build_pipelines(32)["training"]),
-                              (tsp, chip_smoke.msseg2_pipelines(32)["training"])):
+                              (tsp, port_pipelines(32)["training"])):
             pkg.seed_all(seed)
             raw = chip_smoke.msseg2_subject(pkg, volumes, affine, "sub-0", ground_truth=True)
             out[pkg] = pipeline(raw)

@@ -11,6 +11,8 @@ import pytest
 
 import chip_smoke
 from research.dmri_hippo.configs.main_config import build_transforms
+from segmentation_pipeline_torch.research.dmri_hippo.configs.main_config import \
+    build_transforms as port_transforms
 
 MODULES = ("core.subject", "transforms.base", "transforms.spatial", "transforms.intensity",
            "transforms.label", "transforms.structural", "prediction")
@@ -198,7 +200,7 @@ def test_compose_exclude_and_one_of():
 
 
 def test_filter_records_and_filter_transform():
-    subjects = _both(lambda pkg: chip_smoke.default_pipeline(CROP)
+    subjects = _both(lambda pkg: port_transforms(CROP, False)["default"]
                      if pkg is PORT else build_transforms(CROP, False)["default"])
     for types in (["LabelTransform", "CopyProperty", "RenameProperty", "ConcatenateImages"],
                   ["SpatialTransform"], ["IntensityTransform"]):
@@ -216,9 +218,9 @@ def test_filter_records_and_filter_transform():
 
 
 def test_default_pipeline_matches_the_config():
-    """chip_smoke.default_pipeline from the port's transforms against
+    """The ported configuration's ``default`` transforms against
     main_config's ``default``: X bit for bit, the tape with its args."""
-    js, ts = _both(lambda pkg: chip_smoke.default_pipeline(CROP)
+    js, ts = _both(lambda pkg: port_transforms(CROP, False)["default"]
                    if pkg is PORT else build_transforms(CROP, False)["default"])
     assert ts["X"].data.shape == (3, *CROP) and ts["X"].data.dtype == np.float32
     assert ts["y"].data.shape == (2, *CROP)
@@ -229,7 +231,7 @@ def _predicted(pkg, seed):
     """The subject through the default pipeline, with a one-hot crop-space
     prediction attached as StandardPredict attaches it."""
     s = _raw(pkg, seed)
-    (chip_smoke.default_pipeline(CROP) if pkg is PORT
+    (port_transforms(CROP, False)["default"] if pkg is PORT
      else build_transforms(CROP, False)["default"])(s)
     ids = np.random.default_rng(seed + 10).integers(0, 2, CROP)
     y_pred = np.moveaxis(np.eye(2, dtype=np.float32)[ids], -1, 0)
