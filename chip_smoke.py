@@ -139,13 +139,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    checkpoints, and each checkpoint reloaded into a fresh Context
    answering a probe batch as its model did when it was saved, bit for
    bit. Iterations per second of the float32 trainer against num_workers
-   in {0, 2, 4, 8} (21 iterations each) with the timer's median split, the
+   in {0, 2, 4, 8} (21 iterations each, once) with the timer's median split, the
    validation sweep's time, the synchronous part of a checkpoint save,
    peak memory and the idle share over 5 profiled iterations. Then msseg2's
    trainer on the dataset of phase 10 for 6 iterations in float32: 67/32/34
    launches per iteration, 34 forward per validation patch batch. Where
    matplotlib or PIL is missing, one line says so and the contour-image
    schedules are dropped from both contexts before they train.
+12. fast-path: the configurations' tpu_fast_path=True (device_cache and
+   device_augmentation="auto") over phase 11's datasets. First
+   ops/augment.py at the trainers' batches (4 x 96x88x24 x 3 for
+   dmri_hippo, 4 x 96^3 x 2 for msseg2, uint8 label ids) on the card
+   against the port on the CPU at the same draws, made on the CPU and
+   moved: both reference configurations in float32 and bfloat16 (X within
+   1e-5 of max|CPU| in float32, one bf16 step in bfloat16; labels bit for
+   bit) and timed (augment_batch, draws included), then every gate on in
+   float32. Then dmri_hippo's trainer as in phase 11, 51 iterations in
+   float32 and in bfloat16, with the same readings and assertions plus the
+   cache's bytes and the host's pretransform time, each followed by a
+   profile of 5 plain iterations (idle share); then msseg2's trainer for
+   31 iterations in float32 (67/32/34 launches per iteration) with 5 plain
+   iterations profiled within the run (left out of its rate), and its
+   DevicePatchCache checked against extract_patch at the drawn starts and
+   timed.
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -188,6 +204,7 @@ from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_
                                                      conv3x3_s1p1_dx_plain, conv3x3_s1p1_plain,
                                                      reset_launch_counts)
 from segmentation_pipeline_torch.core.subject import collate_subjects
+from segmentation_pipeline_torch.data.loader import extract_patch
 from segmentation_pipeline_torch.ops.sliding_window import grid_locations
 from segmentation_pipeline_torch.prediction import (StandardPredict, reverse_split_and_flip,
                                                     split_and_flip)
@@ -1927,13 +1944,15 @@ HIPPO_SUBJECTS = {"validation": 4, "training": 8, "ab300": 4}
 TRAINER_ITERATIONS = 51
 VALIDATION_BATCH = 16
 TRAINER_WORKERS = 4
-# 4 and 8 run twice, in both orders: one reading of each lay within the
-# spread between runs
-WORKER_COUNTS = (0, 2, 4, 8, 8, 4)
+WORKER_COUNTS = (0, 2, 4, 8)
 WORKER_ITERATIONS = 21
 PROFILE_WARMUP_ITERATIONS = 3
 PROFILED_ITERATIONS = 5
 MS_TRAINER_ITERATIONS = 6
+# the fast-path phase: msseg2's iterations and the batch of the
+# augmentation checks (the trainers' batch)
+MS_FAST_ITERATIONS, MS_FAST_PROFILE_START = 31, 16
+AUG_BATCH = 4
 # dmri_hippo's schedule (main_config.py build_evaluation_schedule): the
 # evaluators each iteration runs, by interval.
 HIPPO_SCHEDULE = {"training_segmentation_eval": 10, "contour_image_training": 50,
@@ -2044,18 +2063,20 @@ class MemoryLogger(tsp.NonLogger):
         self.records.append(log_dict)
 
 
-class ProfilingLogger(MemoryLogger):
+class Profiling:
     """Traces the trainer's steady state between two of its log calls:
     torch.profiler starts at the log of iteration ``start``, warms up until
     that of ``start + warmup`` and records until that of ``start + warmup +
     span``. The trainer logs a plain iteration at the same point of the next
     one, so the recorded window is ``span`` whole iterations, with none of
-    train()'s set-up. No synchronize bounds it: the loop is periodic."""
+    train()'s set-up. No synchronize bounds it: the loop is periodic. Mixed
+    into a logger."""
 
-    def __init__(self, start, warmup, span):
-        super().__init__()
-        self.marks = {start: "start", start + warmup: "record", start + warmup + span: "stop"}
+    def profile(self, start, warmup=PROFILE_WARMUP_ITERATIONS, span=PROFILED_ITERATIONS):
+        self.start, self.stop = start, start + warmup + span
+        self.marks = {start: "start", start + warmup: "record", self.stop: "stop"}
         self.averages, self.prof, self.t0, self.wall_ms = [], None, None, None
+        return self
 
     def log(self, log_dict):
         super().log(log_dict)
@@ -2070,6 +2091,38 @@ class ProfilingLogger(MemoryLogger):
             self.wall_ms = (time.perf_counter() - self.t0) * 1e3
             self.prof.step()
             self.prof.stop()
+
+
+class ProfilingLogger(Profiling, MemoryLogger):
+    pass
+
+
+class ProfilingFileLogger(Profiling, tsp.FileLogger):
+    pass
+
+
+def profile_text(logger, workers=TRAINER_WORKERS):
+    """The device busy time and idle share of a Profiling logger's window."""
+    assert logger.wall_ms is not None
+    events = device_events(logger.averages)
+    if not events:
+        return "no device time traced; idle share not measured"
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    recorded = range(logger.stop - PROFILED_ITERATIONS + 1, logger.stop + 1)
+    return (f"profile over {PROFILED_ITERATIONS} plain iterations in steady state (iterations "
+            f"{recorded.start}-{recorded.stop - 1}, num_workers={workers}): wall "
+            f"{logger.wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / logger.wall_ms:.4f}")
+
+
+def timer_totals(records):
+    """Seconds per timer entry summed over a run's records, largest first:
+    where the whole call's time beyond the plain iterations went."""
+    totals = Counter()
+    for r in records:
+        for key, value in r["timer"].items():
+            totals[key.split(".")[0]] += value
+    return ", ".join(f"{k} {v:.3f}" for k, v in totals.most_common())
 
 
 def read_records(logger):
@@ -2113,13 +2166,14 @@ def check_reloads(logger, root):
     return len(logger.answers)
 
 
-def hippo_trainer_run(card, root, logs, dtype, drop_contours):
+def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
     """dmri_hippo's configuration at full width trained for
-    TRAINER_ITERATIONS iterations: launches, schedule, checkpoints and their
-    reloads asserted; times printed. Returns the context."""
+    TRAINER_ITERATIONS iterations (``fast_path``: with tpu_fast_path=True):
+    launches, schedule, checkpoints and their reloads asserted; times
+    printed. Returns the context."""
     name = DTYPE_NAMES[dtype]
     context = hippo_config.get_context(
-        variables={"DATASET_PATH": root},
+        variables={"DATASET_PATH": root}, tpu_fast_path=fast_path,
         compute_dtype=None if dtype == torch.float32 else "bfloat16")
     if drop_contours:
         without_contour_images(context)
@@ -2184,7 +2238,11 @@ def hippo_trainer_run(card, root, logs, dtype, drop_contours):
     rate, text = split_text(plain_iterations(records, 0), TRAINER_ITERATIONS, wall_s)
     sweep_ms = [r["timer"]["model_forward_evaluation"] * 1e3 for r in records
                 if "model_forward_evaluation" in r["timer"]]
-    print(f"trainer dmri_hippo {name} with num_workers={TRAINER_WORKERS}: {text}; launches "
+    label = f"trainer dmri_hippo {name} with num_workers={TRAINER_WORKERS}"
+    if fast_path:
+        label = f"fast-path dmri_hippo {name}: {fast_path_text(context.trainer)}"
+        text += f"; seconds by timer entry over the run: {timer_totals(records)}"
+    print(f"{label}: {text}; launches "
           f"per iteration forward {per_iteration['fwd']}, dX {per_iteration['dx']}, dW "
           f"{per_iteration['dw']}, forward {per_sweep} per validation batch of "
           f"{VALIDATION_BATCH} half-volumes; validation sweep (8 subjects) "
@@ -2223,54 +2281,50 @@ def worker_sweep(card, context):
     return rates
 
 
-def profile_trainer(card, context):
-    """PROFILED_ITERATIONS plain f32 iterations in the trainer's steady state
-    under torch.profiler, after PROFILE_WARMUP_ITERATIONS as its warm-up:
-    device busy time and idle share. The window lies between two iterations
-    that run evaluators (multiples of 10)."""
+def profile_trainer(card, context, label="trainer dmri_hippo f32"):
+    """PROFILED_ITERATIONS plain dmri_hippo iterations in the trainer's
+    steady state under torch.profiler, after PROFILE_WARMUP_ITERATIONS as
+    its warm-up: device busy time and idle share. The window lies between
+    two iterations that run evaluators (multiples of 10)."""
     first = context.trainer.iteration
     start = first + (1 - first) % 10
     if start - first < 2:  # the first iteration fetches its batch unprefetched
         start += 10
-    stop = start + PROFILE_WARMUP_ITERATIONS + PROFILED_ITERATIONS
-    assert stop < start - 1 + 10
-    logger = ProfilingLogger(start, PROFILE_WARMUP_ITERATIONS, PROFILED_ITERATIONS)
+    logger = ProfilingLogger().profile(start)
+    assert logger.stop < start - 1 + 10
     with uncounted():
         # the plain iteration ``stop`` is logged during the next one
-        context.trainer.train(context, max_iterations=stop + 2 - first,
+        context.trainer.train(context, max_iterations=logger.stop + 2 - first,
                               num_workers=TRAINER_WORKERS, logger=logger)
-    assert logger.wall_ms is not None
-    events = device_events(logger.averages)
-    if not events:
-        print(f"trainer profile: no device time traced; idle share not measured [{card}]")
-        return
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    recorded = range(start + PROFILE_WARMUP_ITERATIONS + 1, stop + 1)
-    print(f"trainer dmri_hippo f32 profile over {PROFILED_ITERATIONS} plain iterations in "
-          f"steady state (iterations {recorded.start}-{recorded.stop - 1}, "
-          f"num_workers={TRAINER_WORKERS}): wall {logger.wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / logger.wall_ms:.4f} [{card}]", flush=True)
+    print(f"{label} {profile_text(logger)} [{card}]", flush=True)
 
 
-def ms_trainer_run(card, root, logs, drop_contours):
-    """msseg2's configuration at full width trained for MS_TRAINER_ITERATIONS
-    iterations in f32: the step's launches (67 forward with remat's
-    recompute, 32 dX, 34 dW) and 34 forward per validation patch batch."""
-    context = msseg2_config.get_context(variables={"DATASET_PATH": root})
+def ms_trainer_run(card, root, logs, drop_contours, fast_path=False,
+                   iterations=MS_TRAINER_ITERATIONS):
+    """msseg2's configuration at full width (``fast_path``: with
+    tpu_fast_path=True) trained for ``iterations`` iterations in f32: the
+    step's launches (67 forward with remat's recompute, 32 dX, 34 dW) and
+    34 forward per validation patch batch. Returns the context."""
+    context = msseg2_config.get_context(variables={"DATASET_PATH": root},
+                                        tpu_fast_path=fast_path)
     if drop_contours:
         without_contour_images(context)
     context.init_components()
-    logger = tsp.FileLogger(logs)
+    # the fast path's profile window lies in this run, between the
+    # training evaluators of iterations 15 and 30 (a second train() call
+    # would pretransform the training set again)
+    logger = (ProfilingFileLogger(logs).profile(MS_FAST_PROFILE_START) if fast_path
+              else tsp.FileLogger(logs))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    context.trainer.train(context, max_iterations=MS_TRAINER_ITERATIONS,
+    context.trainer.train(context, max_iterations=iterations,
                           num_workers=TRAINER_WORKERS, validation_batch_size=1, logger=logger)
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    step = ms_expected_train_launches(torch.float32, MS_TRAINER_ITERATIONS)
+    step = ms_expected_train_launches(torch.float32, iterations)
     assert counts["dx"] == step["dx"] and counts["dw"] == step["dw"], counts
     # the validation sweep's forwards: the 15 classes at the patch batch, each
     # as often as one forward has it times the number of patch batches
@@ -2283,18 +2337,25 @@ def ms_trainer_run(card, root, logs, drop_contours):
         MS_CONVS_PER_FORWARD * next(iter(val_batches)) > 0, validation
     val_batches = int(next(iter(val_batches)))
     records = read_records(logger)
-    assert [r["iteration"] for r in records] == list(range(MS_TRAINER_ITERATIONS))
+    assert [r["iteration"] for r in records] == list(range(iterations))
     assert {"training_segmentation_eval", "training_label_eval", "segmentation_eval",
             "model_score"} <= set(records[0]) and np.isfinite(records[0]["model_score"])
     assert all(np.isfinite(r["loss"]) for r in records)
-    timers = plain_iterations(records, 0)
-    rate, text = split_text(timers, MS_TRAINER_ITERATIONS, wall_s)
-    per_iteration = {kind: divmod(c.total(), MS_TRAINER_ITERATIONS) for kind, c in
+    profiled_window = range(logger.start, logger.stop + 2) if fast_path else range(0)
+    timers = plain_iterations([r for r in records if r["iteration"] not in profiled_window], 0)
+    rate, text = split_text(timers, iterations, wall_s)
+    per_iteration = {kind: divmod(c.total(), iterations) for kind, c in
                      (("fwd", training), ("dx", counts["dx"]), ("dw", counts["dw"]))}
     assert all(rest == 0 for _, rest in per_iteration.values()), per_iteration
     loading = sum(t["data_loading"] + t["next_batch_prefetch"] for t in timers) / \
         sum(sum(t.values()) for t in timers)
-    print(f"trainer msseg2 f32 with num_workers={TRAINER_WORKERS}: {text}; host data "
+    label = f"trainer msseg2 f32 with num_workers={TRAINER_WORKERS}"
+    if fast_path:
+        label = f"fast-path msseg2 f32: {fast_path_text(context.trainer)}"
+        text += (f" (iterations {profiled_window.start}-{profiled_window.stop - 1} left out: "
+                 f"{profile_text(logger)}); seconds by timer entry over the run: "
+                 f"{timer_totals(records)}")
+    print(f"{label}: {text}; host data "
           f"(data_loading + next_batch_prefetch) share {loading:.4f}; launches per iteration "
           f"forward {per_iteration['fwd'][0]}, dX {per_iteration['dx'][0]}, dW "
           f"{per_iteration['dw'][0]}, forward {MS_CONVS_PER_FORWARD} per validation patch "
@@ -2302,36 +2363,130 @@ def ms_trainer_run(card, root, logs, drop_contours):
           f"{records[0]['timer']['model_forward_evaluation'] * 1e3:.1f} ms; model_score "
           f"{records[0]['model_score']:.6f}; max_memory_allocated {peak} bytes [{card}]",
           flush=True)
+    return context
 
 
-def trainer_phase(card, seed, ms_root):
-    """The sustained training loop on the card: dmri_hippo in f32 and bf16,
-    the f32 worker sweep and profile, then msseg2 in f32 over the dataset
-    under ``ms_root``."""
-    missing = missing_render_packages()
-    if missing is not None:
-        print(f"trainer: ContourImageEvaluator renders with matplotlib and PIL, and here "
-              f"{missing}; the contour-image schedules are dropped from the dmri_hippo and "
-              f"msseg2 contexts, which train without them [{card}]", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "dmri_hippo")
-        t0 = time.perf_counter()
-        write_hippo_dataset(root, seed + 21)
-        print(f"trainer: dmri_hippo dataset of {sum(HIPPO_SUBJECTS.values())} subjects on "
-              f"{'x'.join(map(str, ORIGINAL_GRID))} written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        contexts = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            contexts[dtype], _ = hippo_trainer_run(
-                card, root, os.path.join(tmp, f"logs-{DTYPE_NAMES[dtype]}"), dtype,
-                missing is not None)
-        del contexts[torch.bfloat16]
+def trainer_phase(card, root, ms_root, tmp, drop_contours):
+    """The sustained training loop on the card: dmri_hippo in f32 and bf16
+    over the dataset under ``root``, the f32 worker sweep and profile, then
+    msseg2 in f32 over the dataset under ``ms_root``."""
+    contexts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        contexts[dtype], _ = hippo_trainer_run(
+            card, root, os.path.join(tmp, f"logs-{DTYPE_NAMES[dtype]}"), dtype, drop_contours)
+    del contexts[torch.bfloat16]
+    torch.cuda.empty_cache()
+    worker_sweep(card, contexts[torch.float32])
+    profile_trainer(card, contexts[torch.float32])
+    del contexts
+    torch.cuda.empty_cache()
+    ms_trainer_run(card, ms_root, os.path.join(tmp, "logs-msseg2"), drop_contours)
+
+
+# The fast-path phase: the configurations' tpu_fast_path=True (the device
+# cache and the device augmentation derived from the declared pipeline).
+
+def fast_path_text(trainer):
+    """The device cache's size and set-up times of the last train() call."""
+    phases = trainer.startup_phases
+    assert trainer._cache is not None and trainer.resolved_device_augmentation is not None
+    return (f"device cache {trainer._cache.nbytes} bytes ({trainer._cache.n_subjects} "
+            f"subjects), host pretransform {phases['pretransform_s']} s, cache build "
+            f"{phases['cache_build_s']} s")
+
+
+def augment_checks(card, seed):
+    """ops/augment.py on the card against the port on the CPU at the same
+    draws (made on the CPU, then moved), at the trainers' batch of
+    dmri_hippo (4 x 96x88x24 x 3) and msseg2 (4 x 96^3 x 2) with uint8
+    label ids: the reference configurations in f32 and bf16, timed
+    (augment_batch, draws included), and every gate on in f32. X within
+    1e-5 of max|CPU| in f32 (one bf16 step in bf16), labels bit for bit."""
+    from segmentation_pipeline_torch.ops import augment
+
+    rng = np.random.default_rng(seed + 31)
+    forced = dict(flip_p=1.0, bias_p=1.0, gamma_p=1.0, noise_p=1.0, blur_p=1.0)
+    cases = (("dmri_hippo", augment.DMRI_REFERENCE_CONFIG, CROP, IN_CHANNELS,
+              dict(affine_p=1.0, elastic_p=1.0)),
+             ("msseg2", augment.MSSEG2_REFERENCE_CONFIG, (MS_PATCH,) * 3, MS_IN_CHANNELS,
+              dict(oneof_p=1.0, oneof_affine_weight=0.5)))
+    for name, reference, spatial, channels, spatial_on in cases:
+        X = torch.from_numpy(rng.normal(size=(AUG_BATCH, *spatial, channels)).astype(np.float32))
+        ids = torch.from_numpy(rng.integers(0, 2, size=(AUG_BATCH, *spatial)).astype(np.uint8))
+        for gates, cfg, dtypes in (("reference gates", reference, (torch.float32, torch.bfloat16)),
+                                   ("every gate on", dict(reference, **forced, **spatial_on),
+                                    (torch.float32,))):
+            draws = augment.draw_augmentation(torch.Generator().manual_seed(seed + 32),
+                                              AUG_BATCH, spatial, channels, cfg)
+            ran = augment._host_gates(draws, augment.resolve_config(cfg))
+            ran = ", ".join(f"{k} {int(v.sum())}" for k, v in ran.items()
+                            if k in ("affine", "elastic", "bias", "gamma", "noise", "blur"))
+            card_draws = {k: v.cuda() for k, v in draws.items()}
+            for dtype in dtypes:
+                x = X.to(dtype)
+                t0 = time.perf_counter()
+                cpu_x, cpu_y = augment.apply_augmentation(x, ids, draws, cfg)
+                cpu_s = time.perf_counter() - t0
+                card_x, card_y = augment.apply_augmentation(x.cuda(), ids.cuda(), card_draws, cfg)
+                ref = cpu_x.float()
+                err = float((card_x.float().cpu() - ref).abs().max() / ref.abs().max())
+                tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+                assert card_x.dtype == dtype and err <= tol, (name, gates, dtype, err)
+                assert torch.equal(card_y.cpu(), cpu_y), (name, gates, dtype)
+                timed = ""
+                if gates == "reference gates":
+                    generator = torch.Generator(device="cuda").manual_seed(seed)
+                    xc, yc = x.cuda(), ids.cuda()
+                    ms = time_ms(lambda: augment.augment_batch(generator, xc, yc, cfg),
+                                 trials=5, calls=3)
+                    timed = f"; augment_batch {ms:.3f} ms per batch (draws included)"
+                print(f"fast-path augment {name} {DTYPE_NAMES[dtype]} {gates} "
+                      f"({AUG_BATCH} x {'x'.join(map(str, spatial))} x {channels}; samples "
+                      f"per stage: {ran}): card against CPU max|diff|/max|CPU| {err:.3e} "
+                      f"(limit {tol:.3e}), labels bit for bit; CPU {cpu_s:.2f} s{timed} "
+                      f"[{card}]", flush=True)
+
+
+def patch_cache_check(card, context, seed):
+    """The msseg2 trainer's DevicePatchCache: one batch of patches drawn on
+    the card equals extract_patch of the pretransformed subjects at the
+    drawn starts; ms per sample() call."""
+    trainer = context.trainer
+    cache, subjects = trainer._cache, trainer._cache_dataset.subjects
+    idx = list(range(min(AUG_BATCH, len(subjects))))
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    batch, starts = cache.sample(idx, generator)
+    starts = starts.cpu().numpy()
+    for k, i in enumerate(idx):
+        patch = extract_patch(subjects[i], starts[k], cache.patch_size)
+        assert np.array_equal(batch["X"][k].cpu().numpy(),
+                              np.moveaxis(np.asarray(patch["X"].data), 0, -1)), i
+        assert np.array_equal(batch["y"][k].cpu().numpy(),
+                              np.asarray(patch["y"].data).argmax(0)), i
+    ms = time_ms(lambda: cache.sample(idx, generator), trials=5, calls=5)
+    print(f"fast-path msseg2 DevicePatchCache: {len(idx)} patches of "
+          f"{'x'.join(map(str, cache.patch_size))} from volumes padded to "
+          f"{'x'.join(map(str, cache.volume_shape))} equal extract_patch at the drawn starts; "
+          f"sample() {ms:.3f} ms per batch; {cache.nbytes} bytes with the CDFs [{card}]",
+          flush=True)
+
+
+def fast_path_phase(card, seed, root, ms_root, tmp, drop_contours):
+    """tpu_fast_path=True on the card: the augmentation checks, dmri_hippo's
+    trainer in f32 and bf16 (each profiled in steady state) over phase 11's
+    dataset under ``root``, then msseg2's in f32 over ``ms_root``, profiled
+    within its run, and the patch cache's check."""
+    augment_checks(card, seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = DTYPE_NAMES[dtype]
+        context, _ = hippo_trainer_run(card, root, os.path.join(tmp, f"logs-fast-{name}"),
+                                       dtype, drop_contours, fast_path=True)
+        profile_trainer(card, context, f"fast-path dmri_hippo {name}")
+        del context
         torch.cuda.empty_cache()
-        worker_sweep(card, contexts[torch.float32])
-        profile_trainer(card, contexts[torch.float32])
-        del contexts
-        torch.cuda.empty_cache()
-        ms_trainer_run(card, ms_root, os.path.join(tmp, "logs-msseg2"), missing is not None)
+    context = ms_trainer_run(card, ms_root, os.path.join(tmp, "logs-fast-msseg2"),
+                             drop_contours, fast_path=True, iterations=MS_FAST_ITERATIONS)
+    patch_cache_check(card, context, seed)
 
 
 def main() -> int:
@@ -2390,7 +2545,21 @@ def main() -> int:
         HybridLogisticDiceLoss(), state_dict, {k: v[:1] for k, v in batch_cf.items()},
         sagittal_split=True)
     try:
-        trainer_phase(card, args.seed, ms_root)
+        drop_contours = missing_render_packages()
+        if drop_contours is not None:
+            print(f"trainer: ContourImageEvaluator renders with matplotlib and PIL, and here "
+                  f"{drop_contours}; the contour-image schedules are dropped from the "
+                  f"dmri_hippo and msseg2 contexts, which train without them [{card}]",
+                  flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "dmri_hippo")
+            t0 = time.perf_counter()
+            write_hippo_dataset(root, args.seed + 21)
+            print(f"trainer: dmri_hippo dataset of {sum(HIPPO_SUBJECTS.values())} subjects on "
+                  f"{'x'.join(map(str, ORIGINAL_GRID))} written in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            trainer_phase(card, root, ms_root, tmp, drop_contours is not None)
+            fast_path_phase(card, args.seed, root, ms_root, tmp, drop_contours is not None)
     finally:
         shutil.rmtree(ms_root)
 

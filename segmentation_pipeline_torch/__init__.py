@@ -13,7 +13,9 @@ its samplers), the train step (make_train_step, HybridLogisticDiceLoss,
 Adam and SGD; ModularUNet's rematerialized blocks) and the training loop
 around it: SubjectFolder with its loaders and cohort filters, the Context
 and its checkpoints, SegmentationTrainer with scheduled evaluators, and
-FileLogger. The configurations of dmri_hippo and msseg2 live in
+FileLogger; and the trainer's device levers (the device cache, device patch
+sampling and the batched device augmentation derived from the declared
+pipeline: ``tpu_fast_path=True``). The configurations of dmri_hippo and msseg2 live in
 ``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
 and weight gradients run on hand-written CUDA kernels
 (csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
@@ -21,6 +23,7 @@ card unless the caller passes ``device="cpu"``.
 """
 from .core import Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti, write_nifti
 from .criterions import HybridLogisticDiceLoss
+from .data.device_cache import DeviceDataCache
 from .data import (AnyFilter, AttributeLoader, ComposeFilters, ComposeLoaders, ForbidAttributes,
                    ImageLoader, LabelSampler, NegateFilter, PatchDataLoader, PatchQueue,
                    RandomFoldFilter, RandomSampler, RandomSelectFilter, RequireAttributes,

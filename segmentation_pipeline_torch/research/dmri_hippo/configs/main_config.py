@@ -218,12 +218,11 @@ def get_context(device=None, variables=None, fold=0, predict_hbt=False,
     for small-scale smoke tests. compute_dtype="bfloat16" runs the network
     forward and backward in bf16 over float32 weights and loss.
 
-    tpu_fast_path=True (the device cache and device augmentation) waits for
-    ROADMAP Queue 1 item 12 and raises."""
-    if tpu_fast_path:
-        raise NotImplementedError("tpu_fast_path=True (device_cache and device_augmentation) "
-                                  "waits for the port of ROADMAP Queue 1 item 12 (device "
-                                  "training levers)")
+    tpu_fast_path=True turns on the device training levers with no
+    hand-written augmentation dict: device_cache=True (the deterministic
+    pipeline pretransformed once, the training set on the device) and
+    device_augmentation="auto" (training/auto_augment.py derives the device
+    augmentation from this file's declared pipeline)."""
     context = Context(device, name="dmri-hippo", variables=variables)
     context.file_paths.append(os.path.abspath(__file__))
     context.config.update({"fold": fold})
@@ -260,7 +259,7 @@ def get_context(device=None, variables=None, fold=0, predict_hbt=False,
                               sampler=RandomSampler),
                           validation_dataloader_factory=StandardDataLoader(
                               sampler=SequentialSampler),
-                          device_cache=False,
-                          device_augmentation=None,
+                          device_cache=tpu_fast_path,
+                          device_augmentation="auto" if tpu_fast_path else None,
                           compute_dtype=compute_dtype)
     return context

@@ -136,12 +136,11 @@ def get_context(device=None, variables=None, fold=0, patch_size=96,
     """patch_size/filters default to the reference config; override only
     for small-scale smoke tests.
 
-    tpu_fast_path=True (the device cache and device augmentation) waits for
-    ROADMAP Queue 1 item 12 and raises."""
-    if tpu_fast_path:
-        raise NotImplementedError("tpu_fast_path=True (device_cache and device_augmentation) "
-                                  "waits for the port of ROADMAP Queue 1 item 12 (device "
-                                  "training levers)")
+    tpu_fast_path=True turns on the device training levers with no
+    hand-written augmentation dict: device_cache=True (volumes on the
+    device, patches sampled there) and device_augmentation="auto"
+    (training/auto_augment.py derives the device augmentation from this
+    file's declared pipeline; it applies to the sampled patch)."""
     context = Context(device, name="msseg2", variables=variables)
     context.file_paths.append(os.path.abspath(__file__))
     context.config = {"fold": fold, "patch_size": patch_size}
@@ -220,7 +219,7 @@ def get_context(device=None, variables=None, fold=0, patch_size=96,
                                     probability_map="patch_probability")),
         validation_dataloader_factory=StandardDataLoader(
             sampler=SequentialSampler),
-        device_cache=False,
-        device_augmentation=None,
+        device_cache=tpu_fast_path,
+        device_augmentation="auto" if tpu_fast_path else None,
         compute_dtype=compute_dtype)
     return context

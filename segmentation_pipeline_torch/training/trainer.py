@@ -1,11 +1,16 @@
 """SegmentationTrainer: the scheduled-evaluation training loop.
 
-Ported from segmentation_pipeline_tpu/training/trainer.py on its default
-path (no device cache, no device augmentation, no mesh): iteration-based
-training with interval-scheduled evaluators over named cohorts, model
-scoring and best-checkpoint tracking, early stopping, a wall-clock budget
-with a save buffer, and cooperative SIGINT/SIGTERM/SIGUSR2 preemption,
-around the eager train step of training/train_step.py.
+Ported from segmentation_pipeline_tpu/training/trainer.py on one device (no
+mesh): iteration-based training with interval-scheduled evaluators over
+named cohorts, model scoring and best-checkpoint tracking, early stopping,
+a wall-clock budget with a save buffer, and cooperative
+SIGINT/SIGTERM/SIGUSR2 preemption, around the eager train step of
+training/train_step.py. The device levers of the configurations'
+``tpu_fast_path``: ``device_cache`` (the training set pretransformed once
+and uploaded; batches are gathers, or patches drawn, on the device) and
+``device_augmentation`` (ops/augment.py on each batch before the step; a
+config dict, or "auto" to derive it from the declared pipeline,
+training/auto_augment.py).
 
 The host work runs in the JAX package's order, so a seeded run draws the
 same host randomness there and here: ``training_dataset[0]`` before the
@@ -15,16 +20,19 @@ on the device; under bfloat16 the input is cast on the host first. Both go
 through pinned memory without blocking the host, so the next batch uploads
 while the step runs. On iterations with nothing scheduled the loss values
 are read one iteration late, from a copy that waits only for their own step.
-Dropout draws from one ``torch.Generator`` on the model's device, seeded
-from the iteration the run starts at.
+Dropout, device patch sampling and device augmentation draw from one
+``torch.Generator`` on the model's device, seeded from the iteration the
+run starts at.
 
 What the JAX trainer also does and the port does not yet raises
 ``NotImplementedError`` with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
+import copy
 import math
 import os
+import random
 import signal
 import sys
 import threading
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.device_cache import is_exact_onehot
 from ..data.loader import DataLoaderFactory
 from ..data.subject_filters import AnyFilter, RequireAttributes
 from ..evaluators import Evaluator, SegmentationEvaluator
@@ -93,16 +102,6 @@ class ScheduledEvaluation:
         return auto_str(self)
 
 
-def is_exact_onehot(y: np.ndarray, axis: int = 1) -> bool:
-    """True when ``y`` is exactly one-hot over ``axis`` with 1 < C <= 255:
-    the labels may then cross to the device as uint8 class ids, bit-identical
-    on expansion."""
-    n_classes = int(y.shape[axis])
-    return (1 < n_classes <= 255
-            and bool(np.all((y == 0) | (y == 1)))
-            and bool(np.all(y.sum(axis=axis) == 1)))
-
-
 def stack_batch(subjects, compute_dtype=None):
     """X and y of a batch of subjects as the trainer ships them: X stacked
     channel-first as float32 and cast on the host to ``compute_dtype``
@@ -123,14 +122,20 @@ def stack_batch(subjects, compute_dtype=None):
     return {"X": x, "y": y}, n_classes
 
 
+def expand_ids(batch, n_classes):
+    """On the device: (N, W, H, D) class ids -> (N, W, H, D, C) float32
+    one-hot; other labels stay as they are."""
+    if batch["y"].dim() == 4:
+        batch["y"] = F.one_hot(batch["y"].long(), n_classes).float()
+    return batch
+
+
 def upload_batch(batch_cf, n_classes, device):
     """A host batch of ``stack_batch`` to the device, channels-last
     (``collate_to_device``: pinned, without blocking the host), class ids
     expanded there to float32 one-hot."""
     batch = collate_to_device(batch_cf, device=device)
-    if n_classes is not None:  # (N, W, H, D) ids -> (N, W, H, D, C)
-        batch["y"] = F.one_hot(batch["y"].long(), n_classes).float()
-    return batch
+    return batch if n_classes is None else expand_ids(batch, n_classes)
 
 
 def device_confusion_sweep(scheduled, predictor) -> bool:
@@ -174,10 +179,10 @@ class SegmentationTrainer:
                  compute_dtype: Optional[str] = None,
                  device_cache: bool = False,
                  device_confusion: Optional[bool] = None):
-        if device_cache:
-            raise _not_ported("device_cache=True", "item 12 (device training levers)")
-        if device_augmentation is not None:
-            raise _not_ported("device_augmentation", "item 12 (device training levers)")
+        if isinstance(device_augmentation, str) and device_augmentation != "auto":
+            raise ValueError(
+                f"device_augmentation={device_augmentation!r}: pass a config "
+                f"dict, {{}} for defaults, None, or 'auto'")
         if mesh is not None or spatial_axis is not None:
             raise _not_ported("mesh / spatial_axis", "item 10 (multi-device)")
         if getattr(train_predictor, "refine_image", None) is not None:
@@ -200,6 +205,15 @@ class SegmentationTrainer:
         # statistics and the loss stay float32. A string keeps the trainer
         # definition picklable in checkpoints.
         self.compute_dtype = compute_dtype
+        # ops/augment.py on each training batch before the step: a config
+        # dict ({} for the defaults), or "auto" to derive it from the
+        # training cohort's declared pipeline (training/auto_augment.py),
+        # whose deterministic prefix and suffix stay on the host
+        self.device_augmentation = device_augmentation
+        # the training set pretransformed once (its pipeline must then be
+        # deterministic) and uploaded; batches become gathers, or patch
+        # draws, on the device (data/device_cache.py)
+        self.device_cache = device_cache
         # None/True: a sweep the JAX trainer would reduce on the device
         # raises until that reduction is ported; False: the host path
         self.device_confusion = device_confusion
@@ -272,7 +286,26 @@ class SegmentationTrainer:
         print("Initializing logger.")
         logger.setup(context)
 
+        phases = self.startup_phases = {}
         training_dataset = context.dataset.get_cohort_dataset("training")
+        device_aug, probe_subject = self._resolve_device_augmentation(training_dataset)
+
+        # device_cache pretransforms the training set once: a still
+        # stochastic host pipeline would bake one random draw into the
+        # cache for the whole run
+        if self.device_cache:
+            from .auto_augment import contains_random
+
+            if not training_dataset._pretransformed \
+                    and contains_random(training_dataset.transform):
+                raise ValueError(
+                    "device_cache=True pretransforms the training set once, "
+                    "which would FREEZE the stochastic transforms in the "
+                    "training pipeline into a single draw baked into the cache. "
+                    "Pass device_augmentation='auto' to map them onto the "
+                    "device pipeline (training/auto_augment.py), or "
+                    "strip them from the cohort transform explicitly.")
+
         if preload_training_data:
             t = time.time()
             print("Preloading training data...")
@@ -297,18 +330,21 @@ class SegmentationTrainer:
             if getattr(self.validation_predictor, "cache_inputs", False) is None:
                 self.validation_predictor.cache_inputs = True
 
-        training_dataloader = self.train_dataloader_factory.get_data_loader(
-            dataset=training_dataset, batch_size=self.training_batch_size,
-            num_workers=num_workers)
+        training_iterator = None
+        if not self.device_cache:
+            training_dataloader = self.train_dataloader_factory.get_data_loader(
+                dataset=training_dataset, batch_size=self.training_batch_size,
+                num_workers=num_workers)
 
-        def infinite(loader):
-            while True:
-                yield from loader
+            def infinite(loader):
+                while True:
+                    yield from loader
 
-        training_iterator = infinite(training_dataloader)
+            training_iterator = infinite(training_dataloader)
 
-        # label attributes for wrapping raw predictions as LabelMaps
-        sample = training_dataset[0]
+        # label attributes for wrapping raw predictions as LabelMaps (the
+        # auto-augmentation's spacing probe when it ran)
+        sample = probe_subject if probe_subject is not None else training_dataset[0]
         label_attributes = dict(sample["y"].metadata)
 
         model = context.model
@@ -327,13 +363,32 @@ class SegmentationTrainer:
         generator = torch.Generator(device=model.device).manual_seed(self.iteration)
         max_iterations = int(max_iterations if max_iterations is not None else 10 ** 9)
 
+        # the number of classes of one-hot labels that travel as uint8 ids
+        # until the augmentation has warped them
+        compact = {"n_classes": None}
+        cache, index_iterator = None, None
+        if self.device_cache:
+            cache, index_iterator = self._build_cache(
+                training_dataset, device_aug, model.device, phases)
+            if cache._is_onehot and device_aug is not None:
+                compact["n_classes"] = cache.n_classes
+        self._cache = cache  # exposed for measurements: its bytes, a sample() to time
+
         def fetch_and_upload():
-            """Pull the next batch from the host pipeline and start its
-            upload. Called while the device runs the current step, so the
-            upload rides under it."""
+            """Pull the next batch (a device gather or patch draw from the
+            cache, else the host pipeline's, whose upload starts here).
+            Called while the device runs the current step, so the upload
+            rides under it."""
+            if cache is not None:
+                return self._fetch_cached(cache, next(index_iterator), training_dataset,
+                                          generator)
             subjects = next(training_iterator)
-            return subjects, upload_batch(*stack_batch(subjects, self.compute_dtype),
-                                          device=model.device)
+            batch_cf, n_classes = stack_batch(subjects, self.compute_dtype)
+            if device_aug is None:
+                return subjects, upload_batch(batch_cf, n_classes, device=model.device)
+            # the device augmentation warps class ids and expands them after
+            compact["n_classes"] = n_classes
+            return subjects, collate_to_device(batch_cf, device=model.device)
 
         pending = None  # (subjects, device batch) prefetched last iteration
         deferred = None  # the loss record of a logging-only iteration
@@ -369,6 +424,12 @@ class SegmentationTrainer:
                                                  sagittal_split=sagittal_split,
                                                  compute_dtype=self.compute_dtype)
 
+                if device_aug is not None:
+                    from ..ops.augment import augment_batch
+
+                    batch["X"], batch["y"] = augment_batch(
+                        generator, batch["X"], batch["y"], config=device_aug)
+                    batch = expand_ids(batch, compact["n_classes"])  # after the warp
                 self._train_state, loss_dict, y_pred_cl = train_step(
                     self._train_state, batch, generator)
 
@@ -413,8 +474,17 @@ class SegmentationTrainer:
                 # scheduled training evaluators see the train-mode predictions
                 training_evaluations = {}
                 if scheduled_train:
+                    if callable(subjects):  # the cache's lazy batch subjects
+                        subjects = subjects()
                     y_pred_cf = to_channels_first(y_pred_cl).cpu().numpy()
+                    if device_aug is not None:
+                        # the prediction lives in the augmented geometry: the
+                        # evaluators compare it with the augmented target
+                        y_aug_cf = to_channels_first(batch["y"]).cpu().numpy()
                     for i, subject in enumerate(subjects):
+                        if device_aug is not None and "y" in subject:
+                            subject["y"].set_data(
+                                y_aug_cf[i].astype(np.asarray(subject["y"].data).dtype))
                         _attach_prediction(subject, y_pred_cf[i], label_attributes)
                     add_evaluation_labels(subjects)
                 for scheduled in scheduled_train:
@@ -528,6 +598,133 @@ class SegmentationTrainer:
                     print("Warning: logger close failed while handling an earlier error:",
                           flush=True)
                     traceback.print_exc()
+
+    def _resolve_device_augmentation(self, training_dataset):
+        """The device-augmentation config of this run, and the spacing probe
+        subject when one was transformed. "auto" derives the config from the
+        cohort's declared pipeline and leaves the deterministic remainder
+        on the dataset; a second train() in the process reuses the first
+        resolution (re-deriving from the remainder would find no
+        randomness). Exposed as ``resolved_device_augmentation``."""
+        device_aug, probe_subject = self.device_augmentation, None
+        if device_aug == "auto" and training_dataset.transform is getattr(
+                self, "_auto_aug_host_transform", object()):
+            device_aug = self.resolved_device_augmentation
+        elif device_aug == "auto":
+            from .auto_augment import derive_hybrid_augmentation, describe_config
+
+            declared = training_dataset.transform
+            host_t, aug_cfg, hybrid_spec = derive_hybrid_augmentation(declared)
+            if aug_cfg is None and hybrid_spec is None:
+                print("device_augmentation='auto': the training pipeline declares no "
+                      "stochastic transforms; device augmentation disabled.")
+                device_aug = None
+            else:
+                if hybrid_spec is not None:
+                    if self.device_cache:
+                        raise _not_ported(
+                            "Hybrid device augmentation (a host channel resynthesis "
+                            "with device_cache)",
+                            "item 2 (transforms/dwi.py and training/hybrid_augment.py)")
+                    # no cached batch to splice into: the peeled host stage
+                    # runs inline, the derived window on the device
+                    host_t = hybrid_spec.host_inline
+                training_dataset.set_transform(host_t)
+                self._auto_aug_host_transform = host_t
+                # blur and elastic are in mm on the host: convert with the
+                # spacing at the augmentation point, from one transformed sample
+                if aug_cfg is not None and (
+                        aug_cfg.get("blur_p", 0) or aug_cfg.get("elastic_p", 0)
+                        or aug_cfg.get("spatial_mode") == "oneof"):
+                    probe_subject = training_dataset[0]
+                    spacing = tuple(float(s) for s in probe_subject["X"].spacing)
+                    _, aug_cfg, _ = derive_hybrid_augmentation(declared, spacing)
+                device_aug = aug_cfg
+                msg = (describe_config(aug_cfg) if aug_cfg is not None
+                       else "(all device stages off)")
+                if hybrid_spec is not None:
+                    msg += f" + per-batch host stage {hybrid_spec}"
+                print(f"device_augmentation='auto': {msg}")
+        self.resolved_device_augmentation = device_aug
+        return device_aug, probe_subject
+
+    def _build_cache(self, training_dataset, device_aug, device, phases):
+        """The device cache of the pretransformed training set and the
+        infinite stream of full batches of subject ids for it."""
+        from ..data.device_cache import DeviceDataCache, DevicePatchCache
+        from ..data.loader import PatchDataLoader, RandomSampler, StandardDataLoader
+
+        factory = self.train_dataloader_factory
+        if not isinstance(factory, (StandardDataLoader, PatchDataLoader)):
+            raise ValueError("device_cache supports StandardDataLoader (whole-volume) and "
+                             "PatchDataLoader (device-side patch sampling) factories")
+        if not training_dataset._pretransformed:
+            t = time.time()
+            print("Pretransforming training data for the device cache...")
+            training_dataset.preload_and_transform_subjects()
+            phases["pretransform_s"] = round(time.time() - t, 2)
+            print(f"Done. Took {phases['pretransform_s']}s")
+        t = time.time()
+        x_dtype = _normalize_compute_dtype(self.compute_dtype)
+        # with device augmentation one-hot labels stay uint8 ids through the
+        # warp (bit-identical, fewer bytes gathered) and expand after it
+        expand = device_aug is None
+        batch_size = self.training_batch_size
+        if isinstance(factory, StandardDataLoader):
+            cache = DeviceDataCache(training_dataset.subjects, x_dtype=x_dtype, device=device,
+                                    expand_onehot=expand)
+            sampler_cls = factory.sampler or RandomSampler
+
+            def epoch():
+                return list(iter(sampler_cls(training_dataset)))
+        else:
+            cache = DevicePatchCache(training_dataset.subjects, sampler=factory.sampler,
+                                     x_dtype=x_dtype, device=device, expand_onehot=expand)
+            spv = factory.samples_per_volume
+
+            def epoch():  # the queue's balance: spv patches per subject per epoch
+                order = [i for i in range(len(training_dataset)) for _ in range(spv)]
+                random.shuffle(order)
+                return order
+
+        def infinite_indices():
+            # full batches only; an epoch's tail carries into the next
+            # epoch, so every subject still appears once per epoch
+            carry = []
+            while True:
+                order = carry + epoch()
+                n_full = len(order) // batch_size * batch_size
+                carry = order[n_full:]
+                for j in range(0, n_full, batch_size):
+                    yield order[j:j + batch_size]
+
+        phases["cache_build_s"] = round(time.time() - t, 2)
+        # the dataset whose pretransformed subjects back the cache
+        self._cache_dataset = training_dataset
+        print(f"Device cache: {cache.n_subjects} subjects, "
+              f"{cache.nbytes / 2 ** 20:.0f} MiB on {device}")
+        return cache, infinite_indices()
+
+    @staticmethod
+    def _fetch_cached(cache, idx, training_dataset, generator):
+        """A batch from the device cache and a thunk that makes its host
+        subjects, only when a scheduled training evaluator needs them."""
+        if hasattr(cache, "sample"):  # DevicePatchCache
+            batch, starts = cache.sample(idx, generator)
+
+            def subjects_thunk():
+                # host patches (a recorded Crop, an invertible history) at
+                # the device-drawn starts
+                from ..data.loader import extract_patch
+
+                starts_np = starts.cpu().numpy()
+                return [extract_patch(training_dataset.subjects[i], starts_np[k],
+                                      cache.patch_size) for k, i in enumerate(idx)]
+            return subjects_thunk, batch
+
+        def subjects_thunk():
+            return [copy.deepcopy(training_dataset.subjects[i]) for i in idx]
+        return subjects_thunk, cache.gather(idx)
 
     def get_filter_from_scheduled_evaluations(self, dataset, scheduled_evaluations):
         filters = []

@@ -72,9 +72,27 @@ def test_config_keys_and_values_match_jax(name):
 
 
 def test_tpu_fast_path_raises():
-    for config in (thippo, tmsseg2):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            config.get_context(device="cpu", tpu_fast_path=True)
+    """tpu_fast_path=True sets JAX's levers, device_cache and "auto"
+    device augmentation; what still raises on it is a hybrid split (a host
+    channel resynthesis, ROADMAP item 2) with the device cache."""
+    from test_torch_trainer import Resynthesize
+
+    variables = {"DATASET_PATH": "/data"}
+    for jconfig, tconfig in ((jhippo, thippo), (jmsseg2, tmsseg2)):
+        j = jconfig.get_context(variables=variables, tpu_fast_path=True).get_config()
+        t = tconfig.get_context(device="cpu", variables=variables, tpu_fast_path=True).get_config()
+        for key in ("trainer.device_cache", "trainer.device_augmentation"):
+            assert t[key] == j[key], key
+        assert (t["trainer.device_cache"], t["trainer.device_augmentation"]) == (True, "auto")
+        context = tconfig.get_context(device="cpu", variables=variables, tpu_fast_path=True)
+        params = context.get_component_definition("trainer")["params"]
+        trainer = tsp.SegmentationTrainer(**params)
+        dataset = tsp.SubjectFolder.__new__(tsp.SubjectFolder)
+        dataset.transform = tsp.Compose([
+            Resynthesize(), tsp.RandomNoise(std=0.1, p=0.5),
+            tsp.ConcatenateImages(image_names=["t1"], image_channels=[1], new_image_name="X")])
+        with pytest.raises(NotImplementedError, match="item 2"):
+            trainer._resolve_device_augmentation(dataset)
 
 
 def _tiny_context(tmp_path, scorer=module_level_score):

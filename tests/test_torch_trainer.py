@@ -7,7 +7,8 @@ FileLogger, from the same host seed. The losses, the schedule, the
 evaluator outputs and the checkpoint files must agree. Then, on the port
 alone: a resume from a checkpoint repeats the uninterrupted run bit for
 bit, an asynchronous save holds its own iteration's weights, early stops
-land on JAX's iterations, and what the port does not do yet raises.
+land on JAX's iterations, and what the port does not do yet raises (of the
+device levers, a hybrid split with the device cache).
 
 Each iteration of the port starts from the weights and Adam moments the
 JAX run had at that iteration (``follow_jax``). Left to run freely, two
@@ -404,31 +405,74 @@ def test_async_save_holds_its_own_iteration(e2e, tmp_path, monkeypatch):
         assert np.array_equal(opt_state["state"][0][k], v.numpy()), k
 
 
+class Resynthesize(tsp.RandomTransform):
+    """A host-only channel resynthesis in the shape of ReconstructMeanDWI
+    (which the port does not have yet): it regenerates t1 from itself."""
+    mean_dwi_image_name, full_dwi_image_name = "t1", "t1_full"
+
+    def apply_transform(self, subject):
+        return subject
+
+
+def hybrid_training_pipeline():
+    """build_context's pipeline behind a resynthesis of t1 and random noise:
+    the device augmentation derives to a hybrid split."""
+    return tsp.Compose([
+        tsp.CopyProperty("t1", "t1_full"),
+        Resynthesize(),
+        tsp.RandomNoise(std=0.1, p=0.5),
+        tsp.Compose([
+            tsp.RescaleIntensity((-1, 1), (0.5, 99.5)),
+            tsp.ConcatenateImages(image_names=["t1"], image_channels=[1], new_image_name="X"),
+            tsp.RenameProperty(old_name="seg", new_name="y"),
+            tsp.CustomOneHot(include=["y"]),
+        ]),
+    ])
+
+
 @pytest.mark.parametrize("case", ["device_cache", "device_augmentation", "mesh", "spatial_axis",
                                   "refine_image", "device_confusion_sweep"])
 def test_what_is_not_ported_raises(e2e, tmp_path, case):
+    """Of the device levers, a hybrid split (a host channel resynthesis,
+    ROADMAP item 2) raises with the device cache, whichever lever is set
+    first; without the cache the resynthesis runs inline on the host and
+    the device augmentation trains."""
     root, _, _, _ = e2e
 
     class RefinePredict(tsp.StandardPredict):
         refine_image = "y_prior"
 
-    kwargs = {"device_cache": {"device_cache": True},
-              "device_augmentation": {"device_augmentation": {}},
+    levers = {"device_cache": True, "device_augmentation": "auto"}
+    kwargs = {"device_cache": dict(levers),
+              "device_augmentation": dict(reversed(levers.items())),
               "mesh": {"mesh": object()},
               "spatial_axis": {"spatial_axis": "w"},
               "refine_image": {"train_predictor": RefinePredict(device="cpu")},
               "device_confusion_sweep": {"validation_predictor": tsp.StandardPredict(
                   image_names=["X"], device_argmax=True, device="cpu")}}[case]
     item = {"refine_image": "item 5", "mesh": "item 10", "spatial_axis": "item 10",
-            "device_confusion_sweep": "item 3"}.get(case, "item 12")
-    context = build_context(tsp, root, **kwargs)
+            "device_confusion_sweep": "item 3"}.get(case, "item 2")
+
+    def context_of(**trainer_kwargs):
+        context = build_context(tsp, root, **trainer_kwargs)
+        if case in levers:
+            context.get_component_definition("dataset")["params"]["transforms"]["training"] = \
+                hybrid_training_pipeline()
+        return context
+
+    context = context_of(**kwargs)
     with pytest.raises(NotImplementedError, match=item):
         context.init_components()
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
     if case == "device_confusion_sweep":
-        context = build_context(tsp, root, device_confusion=False, **kwargs)
+        context = context_of(device_confusion=False, **kwargs)
         context.init_components()
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
+    if case == "device_augmentation":
+        context = context_of(device_augmentation="auto")
+        context.init_components()
+        context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
+        assert context.trainer.resolved_device_augmentation["noise_p"] == 0.5
 
 
 def test_free_running_float32_adam_parts_beyond_the_tolerance(e2e):
