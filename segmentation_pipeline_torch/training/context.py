@@ -10,7 +10,9 @@ a config) is stored as cloudpickle bytes, and cloudpickle is imported only
 then.
 
 A component that is an ``nn.Module`` is wrapped in ``SegModel`` on the
-context's device (``None`` means the card). ``snapshot`` takes host copies,
+context's device (``None`` means the card). A context loaded from a file
+also puts the predictors among its components' params on its own device,
+wherever the checkpoint was written. ``snapshot`` takes host copies,
 as numpy, of every component's state: the model's tensors, the torch
 optimizer's moments and the trainer's counters all change in place while
 training goes on, and a checkpoint written later from the snapshot must
@@ -159,6 +161,7 @@ class Context:
             self.metadata = checkpoint["metadata"]
 
         os.environ.update({k: str(v) for k, v in self.variables.items()})
+        self.from_file = file_path is not None
         self.loaded = False
 
     # ---- definition management ----------------------------------------
@@ -200,6 +203,8 @@ class Context:
         name = definition["name"]
         constructor = definition["constructor"]
         params = self._fix_params(_restore(definition["params"]))
+        if self.from_file:
+            self._place_predictors(params.values())
 
         component = constructor(**params)
         # networks are wrapped into the runtime SegModel on the context's device
@@ -210,6 +215,18 @@ class Context:
             component.load_state_dict(definition["state_dict"])
 
         self.__dict__[name] = component
+
+    def _place_predictors(self, values):
+        from ..device import resolve_device
+        from ..prediction import Predictor
+
+        for value in values:
+            if isinstance(value, Predictor):
+                value.device = resolve_device(self.device)
+            elif isinstance(value, (list, tuple)):
+                self._place_predictors(value)
+            elif isinstance(value, dict):
+                self._place_predictors(value.values())
 
     def _fix_params(self, params):
         if isinstance(params, dict):

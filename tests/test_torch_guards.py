@@ -15,7 +15,9 @@ from segmentation_pipeline_torch.prediction import StandardPredict
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "segmentation_pipeline_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "segmentation_pipeline_tpu", "benchmarks"}
+# research/ is the JAX package's configurations: the port has its own
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "segmentation_pipeline_tpu", "benchmarks",
+             "research"}
 
 
 def _port_files():

@@ -5,7 +5,8 @@ to the scanner grid and the post-processing. JAX's own
 research/dmri_hippo/hippo_inference.py ``inference`` and ``post_process`` on
 JAX ensembles against the port's: the ``default`` pipeline of the ported
 configuration (segmentation_pipeline_torch/research/dmri_hippo/configs/
-main_config.py) and the composition in chip_smoke.py."""
+main_config.py) and the port's CLI module
+(segmentation_pipeline_torch/research/dmri_hippo/hippo_inference.py)."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +19,7 @@ import segmentation_pipeline_tpu as jsp
 from segmentation_pipeline_tpu.models import ensemble as jens
 from segmentation_pipeline_torch import prediction as tpred
 from segmentation_pipeline_torch.models import ensemble as tens
+from segmentation_pipeline_torch.research.dmri_hippo import hippo_inference as port_cli
 from segmentation_pipeline_torch.research.dmri_hippo.configs.main_config import \
     build_transforms as port_transforms
 from test_torch_ensemble import model_pair, near_ties
@@ -68,10 +70,10 @@ def served():
 
     port_predictor = Recording(tsp.StandardPredict(sagittal_split=True, image_names=["X"],
                                                    device="cpu"))
-    port_subjects = chip_smoke.inference(
+    port_subjects = port_cli.inference(
         _subjects(tsp, port_transforms(CROP, False)["default"]), port_predictor,
         _tta(tens, [m for _, m in pairs]))
-    port_reports = [chip_smoke.post_process(s["y_pred"]) for s in port_subjects]
+    port_reports = [port_cli.post_process(s["y_pred"]) for s in port_subjects]
     return (pairs, jax_predictor.y_pred, jax_subjects, jax_reports,
             port_predictor.y_pred, port_subjects, port_reports)
 
@@ -101,8 +103,8 @@ def test_inversion_and_post_processing_match_jax_exactly(served):
     subjects = _subjects(tsp, port_transforms(CROP, False)["default"])
     for s, y in zip(subjects, jax_crop):
         tpred._attach_prediction(s, y, None)
-    reports = [chip_smoke.post_process(s["y_pred"])
-               for s in chip_smoke.invert_predictions(subjects)]
+    reports = [port_cli.post_process(s["y_pred"])
+               for s in port_cli.invert_predictions(subjects)]
     assert reports == jax_reports
     for s, js in zip(subjects, jax_subjects):
         assert s["y_pred"].data.dtype == js["y_pred"].data.dtype == np.int32

@@ -3,8 +3,9 @@
 ModularUNet, the inversion of the tape, the competition's cleanup and the
 resample back onto the raw grid. JAX's own
 research/msseg2/competition/ms_inference.py ``inference`` (which writes the
-mask as NIfTI) against the port's composition in chip_smoke.py, at the same
-weights, on one subject that MinSizePad(96) pads to one 96^3 patch."""
+mask as NIfTI) against the port's CLI module
+(segmentation_pipeline_torch/research/msseg2/competition/ms_inference.py),
+at the same weights, on one subject that MinSizePad(96) pads to one 96^3 patch."""
 import copy
 
 import numpy as np
@@ -17,6 +18,7 @@ import segmentation_pipeline_torch as tsp
 from research.msseg2.competition import ms_inference
 from research.msseg2.msseg2 import build_pipelines
 from segmentation_pipeline_torch import prediction as tpred
+from segmentation_pipeline_torch.research.msseg2.competition import ms_inference as port_cli
 from segmentation_pipeline_torch.research.msseg2.msseg2 import build_pipelines as port_pipelines
 from test_torch_patch_predict import TIE, msseg2_pair
 
@@ -69,11 +71,11 @@ def served(tmp_path_factory):
     jax_mask, jax_affine = jsp.read_nifti(out / "sub-0" / "mask.nii.gz")
 
     raw = _raw(tsp)
-    subject = port_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
-    [subject], _ = chip_smoke.competition_predictor(False, device="cpu").predict(model,
-                                                                                [subject])
+    subject = port_pipelines(port_cli.PATCH_SIZE)["default"](copy.deepcopy(raw))
+    [subject], _ = port_cli.competition_predictor(False, device="cpu").predict(model,
+                                                                              [subject])
     port_probs = np.array(subject["y_pred"].data)
-    port_label, _ = chip_smoke.ms_to_raw_grid(subject, raw)
+    port_label, _ = port_cli.ms_to_raw_grid(subject, raw)
     return model, recorded[0], jax_mask, jax_affine, port_probs, port_label
 
 
@@ -92,9 +94,9 @@ def test_back_to_the_raw_grid_matches_jax_exactly(served):
     prediction give JAX's NIfTI mask exactly."""
     _, jax_probs, jax_mask, jax_affine, _, _ = served
     raw = _raw(tsp)
-    subject = port_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
+    subject = port_pipelines(port_cli.PATCH_SIZE)["default"](copy.deepcopy(raw))
     tpred._attach_prediction(subject, jax_probs, None)
-    label, _ = chip_smoke.ms_to_raw_grid(subject, raw)
+    label, _ = port_cli.ms_to_raw_grid(subject, raw)
     assert label.data.dtype == np.int32 and label.data.shape == (1, *GRID)
     np.testing.assert_array_equal(label.data, jax_mask)
     # NIfTI stores the affine in float32
@@ -110,7 +112,7 @@ def test_answer_on_the_raw_grid(served):
     if np.array_equal(port_probs.argmax(0), jax_probs.argmax(0)):
         np.testing.assert_array_equal(port_label.data, jax_mask)
     # device_argmax answers with the full fetch's labels
-    subject = port_pipelines(chip_smoke.MS_PATCH)["default"](copy.deepcopy(raw))
-    label, _ = chip_smoke.ms_inference(subject, raw, model,
-                                       chip_smoke.competition_predictor(True, device="cpu"))
+    subject = port_pipelines(port_cli.PATCH_SIZE)["default"](copy.deepcopy(raw))
+    label, _ = port_cli.ms_inference(subject, raw, model,
+                                     port_cli.competition_predictor(True, device="cpu"))
     np.testing.assert_array_equal(label.data, port_label.data)
