@@ -104,7 +104,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 10. msseg2-train: msseg2 training as research/msseg2/msseg2.py:163-231 runs
    it (tpu_fast_path=False). First, with the kernel phases, the forward,
    dX and dW at the 15 classes of a 96^3 patch at the training batch N=4,
-   in float32 and bfloat16, checked and timed as in phases 3 and 4. Then
+   in float32 and bfloat16, checked as in phases 3 and 4 and timed at less
+   depth (medians of 5 trials of 3 calls, the plain version's of 3). Then
    five raw subjects of 256x256x144 (with a lesion ground truth) written
    in msseg2's layout and read by the configuration's SubjectFolder; its
    training cohort (four) through msseg2's ``training`` pipeline and
@@ -139,10 +140,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    checkpoints, and each checkpoint reloaded into a fresh Context
    answering a probe batch as its model did when it was saved, bit for
    bit. Iterations per second of the float32 trainer against num_workers
-   in {2, 4, 8} (21 iterations each, once) with the timer's median split, the
-   validation sweep's time, the synchronous part of a checkpoint save,
-   peak memory and the idle share over 5 profiled iterations. Then msseg2's
-   trainer on the dataset of phase 10 for 6 iterations in float32: 67/32/34
+   in {2, 8} (21 iterations each, once; 4 is the runs above) with the
+   timer's median split, the validation sweep's time, the synchronous part
+   of a checkpoint save, peak memory and the idle share over 5 profiled
+   iterations. Then msseg2's trainer on the dataset of phase 10 for 4
+   iterations in float32: 67/32/34
    launches per iteration, 34 forward per validation patch batch. Where
    matplotlib or PIL is missing, one line says so and the contour-image
    schedules are dropped from both contexts before they train.
@@ -182,6 +184,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    subprocess on one raw FLAIR pair (its mask equals ms_inference's on the
    staged folder); and the flags that raise (--tta-mesh, --ensemble-affines,
    --device-postprocess, cascade_experiment) name their ROADMAP items.
+14. qsm-dwi: qsm's configuration (segmentation_pipeline_torch/research/
+   qsm_deep_grey_matter: NestedResUNet(2 -> 10, filters=40) on the
+   reference crop 120x144x96 of 256x288x128 volumes) and dmri_hippo's DWI
+   augmentation modes. First the forward, dX and dW at qsm's nine classes
+   (Cout 10 in the out conv, Cin 10 in its dX), held against their plain
+   versions as in phases 3-4 and timed beside cuDNN and the bound at N=4
+   and N=2 in both dtypes (the kernels line holds the (N, dtype) each
+   training run uses: 4, f32 and 2, bf16). Then 6 synthetic subjects in qsm's layout (MPRAGE,
+   QSM, vB_PS_r with the 17 structures, IC, pulv; Cb_Brain_058 and
+   Cb_Brain_106 the validation cohort) through the configuration's
+   get_context at full width: the reference (batch 4, f32, the default
+   path, 4 threads, 16 iterations) and the configuration's recipe
+   (microbatch=2 with Adam(accumulate_steps=2), tpu_fast_path=True,
+   compute_dtype="bfloat16", 18 micro-steps; the parameters move after
+   every second micro-step only), each with iterations/s, the timer's
+   split, peak memory, the idle share over 5 profiled iterations within
+   the run, the iteration-0 sweep and the launches per micro-step by class
+   (25/23/25; the recipe's remat adds the blocks' 24 forward convs). Then
+   NestedResUNet(use_norm=False) on a 64x64x32 cut: two micro-steps of N=2
+   with accumulate_steps=2 against one step of N=4, and one f32 qsm step
+   against the port on the CPU. Last, phase 11's dmri_hippo dataset gets a
+   full_dwi series of 96 volumes (6 at b=0, 30 at b=500, 60 at b=1000)
+   and its gradient table: run.py augmentation_experiment
+   --augmentation-mode combined for 6 iterations, without and with
+   --tpu-fast-path (the hybrid device cache: ms per
+   HybridHostAugment.apply, one call's cProfile by function, bytes
+   uploaded per batch, the cached channels
+   other than mean_dwi unchanged by the splice), then run.py debug for 2
+   iterations.
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -191,9 +222,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import cProfile
 import itertools
 import json
 import os
+import pstats
 import shutil
 import statistics
 import subprocess
@@ -238,7 +271,10 @@ from segmentation_pipeline_torch.research.msseg2 import run as cli_ms_run
 from segmentation_pipeline_torch.research.msseg2.competition import ms_inference as cli_ms_inference
 from segmentation_pipeline_torch.research.msseg2.competition.ms_inference import (
     competition_predictor, ms_to_raw_grid)
+from segmentation_pipeline_torch.research.qsm_deep_grey_matter import \
+    qsm_deep_grey_matter as qsm_config
 from segmentation_pipeline_torch.training import trainer as trainer_module
+from segmentation_pipeline_torch.training.hybrid_augment import HybridHostAugment
 from segmentation_pipeline_torch.training.model import SegModel
 
 # H100 SXM data-sheet peaks (dense): CUDA-core float32, tensor-core bf16, HBM3.
@@ -319,10 +355,10 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, trials: int = 15, calls: int = 5) -> float:
+def time_ms(fn, trials: int = 15, calls: int = 5, warmup: int = 3) -> float:
     """Median over ``trials`` of CUDA-event time per call, each trial timing
-    ``calls`` back-to-back calls after a warm-up."""
-    for _ in range(3):
+    ``calls`` back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -381,12 +417,19 @@ def check_exact(name, kernel, plain, *inputs):
     print(f"kernel {name}: bit-exact against the plain version on integer inputs", flush=True)
 
 
-def kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES):
-    """Each conv class in f32 and bf16: check against the plain version and
-    time kernel, plain version and F.conv3d."""
+# time_ms's arguments for the kernel and cuDNN, and for the plain version
+TIMING = (dict(trials=15, calls=5), dict(trials=10, calls=1))
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES,
+                 dtypes=DTYPES, timing=TIMING):
+    """Each conv class in each of ``dtypes``: check against the plain
+    version and time kernel, plain version and F.conv3d (``timing=None``:
+    check only, no rows)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for spatial, cin, cout, _ in classes:
             x = torch.rand((batch, *spatial, cin), generator=gen, device=device) * 2 - 1
             bound = 1 / np.sqrt(27 * cin)
@@ -405,6 +448,12 @@ def kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES)
             check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain,
                         small_integers(gen, device, dtype, batch, *spatial, cin),
                         small_integers(gen, device, dtype, 3, 3, 3, cin, cout))
+            if timing is None:
+                print(f"kernel {name} (untimed): err {err:.3g} (max|ref| {scale:.3g}) [{card}]",
+                      flush=True)
+                del x, k, out, ref
+                torch.cuda.empty_cache()
+                continue
             x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
             w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
             b_ms, b_by, both = kernel_bound(batch, spatial, cin, cout, dtype)
@@ -415,11 +464,11 @@ def kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES)
                 "replaces": REPLACES["fwd"],
                 "launches": None,
                 "max_abs_err": err,
-                "ms": time_ms(lambda: conv3x3_s1p1(x, k)),
-                "plain_ms": time_ms(lambda: conv3x3_s1p1_plain(x, k), trials=10, calls=1),
+                "ms": time_ms(lambda: conv3x3_s1p1(x, k), **timing[0]),
+                "plain_ms": time_ms(lambda: conv3x3_s1p1_plain(x, k), **timing[1]),
                 "bound_ms": b_ms,
                 "bound_by": b_by,
-                "library_ms": time_ms(lambda: F.conv3d(x_ncdhw, w_oi, padding=1)),
+                "library_ms": time_ms(lambda: F.conv3d(x_ncdhw, w_oi, padding=1), **timing[0]),
                 "_key": (str(dtype), batch, *spatial, cin, cout),
                 "_kind": "fwd",
                 **both,
@@ -433,18 +482,19 @@ def kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES)
 
 
 def grad_kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLASSES,
-                      in_channels=IN_CHANNELS):
+                      in_channels=IN_CHANNELS, dtypes=DTYPES, timing=TIMING):
     """dX at each input-gradient class (every conv of ``classes`` but those
     that read the network's ``in_channels``) and dW at each forward class,
-    in f32 and bf16: check against the plain versions and time kernel, plain
-    version and cuDNN's gradient."""
+    in each of ``dtypes``: check against the plain versions and time kernel,
+    plain version and cuDNN's gradient (``timing=None``: check only, no
+    rows)."""
     gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     def uniform(dtype, *shape, scale=1.0):
         return ((torch.rand(shape, generator=gen, device=device) * 2 - 1) * scale).to(dtype)
 
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for spatial, cin, cout, _ in classes:
             x = uniform(dtype, batch, *spatial, cin)
             g = uniform(dtype, batch, *spatial, cout)
@@ -483,6 +533,11 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLA
                 exact_kernel, exact_plain, *shapes = exact
                 check_exact(name, exact_kernel, exact_plain,
                             *(small_integers(gen, device, dtype, *shape) for shape in shapes))
+                if timing is None:
+                    print(f"kernel {name} (untimed): err {err:.3g} (max|ref| {scale:.3g}) "
+                          f"[{card}]", flush=True)
+                    del out, ref
+                    continue
                 b_ms, b_by, both = kernel_bound(batch, spatial, cin, cout, dtype)
                 source = conv3x3.SOURCE if kind == "dx" else conv3x3.DW_SOURCE
                 rows.append({
@@ -492,11 +547,11 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLA
                     "replaces": REPLACES[kind],
                     "launches": None,
                     "max_abs_err": err,
-                    "ms": time_ms(kernel),
-                    "plain_ms": time_ms(plain, trials=10, calls=1),
+                    "ms": time_ms(kernel, **timing[0]),
+                    "plain_ms": time_ms(plain, **timing[1]),
                     "bound_ms": b_ms,
                     "bound_by": b_by,
-                    "library_ms": time_ms(library),
+                    "library_ms": time_ms(library, **timing[0]),
                     "_key": (str(dtype), batch, *spatial, c_in, c_out),
                     "_kind": kind,
                     **both,
@@ -507,6 +562,7 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLA
                       f"[{card}]", flush=True)
                 del out, ref
             del x, g, k, x_ncdhw, g_ncdhw, w_oi, cases
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1576,6 +1632,8 @@ def step_totals(label, rows, launches_per_step, card):
         for kind in ("fwd", "dx", "dw"):
             picked = [(row, launches_per_step(row)) for row in rows
                       if row["_kind"] == kind and row["_key"][0] == str(dtype)]
+            if not picked:
+                continue
             keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
             if dtype == torch.float32:
                 keys.append("_bound_cuda_cores")
@@ -1634,6 +1692,9 @@ def cpu_train_comparison(card, name, make_module, make_optimizer, criterion, sta
 # make_train_step on the rematerialized network with SGD(lr=0.001,
 # momentum=0.95) and HybridLogisticDiceLoss(logistic_class_weights=[1, 100]).
 MS_TRAIN_BATCH = MS_TRAIN_SUBJECTS = 4
+# the 15 classes' timings at N=4 in three kinds and two types took about a
+# minute at TIMING's depth; this depth makes room for the qsm-dwi phase
+MS_TRAIN_TIMING = (dict(trials=5, calls=3), dict(trials=3, calls=1))
 MS_LOADER_BATCHES = 3
 MS_CLASS_WEIGHTS = [1, 100]
 # remat runs the forward of every conv again in the backward but out_conv's
@@ -1893,12 +1954,15 @@ HIPPO_SUBJECTS = {"validation": 4, "training": 8, "ab300": 4}
 TRAINER_ITERATIONS = 51
 VALIDATION_BATCH = 16
 TRAINER_WORKERS = 4
-# num_workers=0, the slowest reading, is left out to make room for the cli phase
-WORKER_COUNTS = (2, 4, 8)
+# num_workers=0, the slowest reading, is left out to make room for the cli
+# phase, and 4, which the runs above read at TRAINER_ITERATIONS, for the
+# qsm-dwi phase
+WORKER_COUNTS = (2, 8)
 WORKER_ITERATIONS = 21
 PROFILE_WARMUP_ITERATIONS = 3
 PROFILED_ITERATIONS = 5
-MS_TRAINER_ITERATIONS = 6
+# host-bound (seconds an iteration): 4 iterations, cut from 6 for the qsm-dwi phase
+MS_TRAINER_ITERATIONS = 4
 # the fast-path phase: msseg2's iterations and the batch of the
 # augmentation checks (the trainers' batch)
 MS_FAST_ITERATIONS, MS_FAST_PROFILE_START = 31, 16
@@ -1947,6 +2011,37 @@ def write_hippo_dataset(root, seed):
                             ("cbbrain_test_subjects", {})):
         with open(os.path.join(root, "attributes", f"{file_name}.json"), "w") as f:
             json.dump(data, f)
+
+
+# dmri_hippo's full DWI series for the augmentation ablation's DWI modes:
+# 6 volumes at b=0, 30 at b=500 (the shell ReconstructMeanDWI averages) and
+# 60 at b=1000 s/mm^2
+DWI_BVALS = (0.0,) * 6 + (500.0,) * 30 + (1000.0,) * 60
+
+
+def write_full_dwi(root, seed, bvals=DWI_BVALS):
+    """Each subject's full DWI series beside its images, on its mean_dwi
+    grid: subjects/<name>/full_dwi.nii (uncompressed, (volumes, W, H, D))
+    and full_dwi_grad.b (one "x y z b" line per volume, unit directions, 0 0
+    0 at b=0): the files the augmentation config's loaders read. Returns
+    the bytes of one series."""
+    rng = np.random.default_rng(seed)
+    bvals = np.asarray(bvals, np.float64)
+    nbytes = 0
+    for folder in sorted(os.listdir(os.path.join(root, "subjects"))):
+        folder = os.path.join(root, "subjects", folder)
+        mean_dwi, affine = read_nifti(os.path.join(folder, "mean_dwi.nii.gz"))
+        signal = np.nan_to_num(mean_dwi, nan=1.0)
+        series = (signal * np.exp(-bvals / 1000.0)[:, None, None, None]
+                  * rng.uniform(0.7, 1.3, (len(bvals), *signal.shape[1:]))).astype(np.float32)
+        write_nifti(os.path.join(folder, "full_dwi.nii"), series, affine)
+        bvecs = rng.normal(size=(len(bvals), 3))
+        bvecs /= np.linalg.norm(bvecs, axis=1, keepdims=True)
+        bvecs[bvals == 0] = 0.0
+        np.savetxt(os.path.join(folder, "full_dwi_grad.b"),
+                   np.concatenate([bvecs, bvals[:, None]], axis=1), fmt="%.6f")
+        nbytes = series.nbytes
+    return nbytes
 
 
 def missing_render_packages():
@@ -2336,10 +2431,12 @@ def trainer_phase(card, root, ms_root, tmp, drop_contours):
 # The fast-path phase: the configurations' tpu_fast_path=True (the device
 # cache and the device augmentation derived from the declared pipeline).
 
-def fast_path_text(trainer):
-    """The device cache's size and set-up times of the last train() call."""
+def fast_path_text(trainer, augmented=True):
+    """The device cache's size and set-up times of the last train() call
+    (``augmented``: asserting that a device augmentation was derived)."""
     phases = trainer.startup_phases
-    assert trainer._cache is not None and trainer.resolved_device_augmentation is not None
+    assert trainer._cache is not None
+    assert (trainer.resolved_device_augmentation is not None) == augmented
     return (f"device cache {trainer._cache.nbytes} bytes ({trainer._cache.n_subjects} "
             f"subjects), host pretransform {phases['pretransform_s']} s, cache build "
             f"{phases['cache_build_s']} s")
@@ -2786,6 +2883,412 @@ def cli_phase(card, seed, root, ms_root, tmp, drop_contours):
     print(f"cli phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+# Phase 14, qsm-dwi: qsm's configuration (research/qsm_deep_grey_matter) on
+# whole volumes with gradient accumulation, and dmri_hippo's DWI augmentation
+# modes with the hybrid device cache.
+QSM_GRID = (256, 288, 128)
+QSM_CROP = (68, 68, 72, 72, 16, 16)  # the configuration's default, 120x144x96
+QSM_AFFINE = np.diag([0.6875, 0.6875, 1.25, 1.0])
+QSM_TRAINING = ["Cb_Brain_001", "Cb_Brain_002", "Cb_Brain_003", "Cb_Brain_004"]
+QSM_IN_CHANNELS, QSM_OUT_CHANNELS = 2, 10
+# NestedResUNet(2 -> 10, filters=40) on the reference crop (68, 68, 72, 72,
+# 16, 16) of 256x288x128, 120x144x96: ((W, H, D), Cin, Cout, launches per
+# forward)
+QSM_CONV_CLASSES = [
+    ((120, 144, 96), 2, 40, 2), ((120, 144, 96), 40, 40, 4),
+    ((120, 144, 96), 80, 40, 6), ((120, 144, 96), 40, 10, 1),
+    ((60, 72, 48), 40, 40, 4), ((60, 72, 48), 120, 40, 2),
+    ((30, 36, 24), 40, 40, 3), ((30, 36, 24), 120, 40, 1),
+    ((15, 18, 12), 40, 40, 2),
+]
+# the reference (batch 4, f32) and the configuration's recipe (microbatch 2
+# with accumulate_steps=2, tpu_fast_path, bf16): the (N, dtype) each runs
+# its micro-steps at, the kernels line's rows; the other two are checked
+# and timed beside them
+QSM_RUNS = ((4, torch.float32), (2, torch.bfloat16))
+# the kernel timings at these sizes: each call takes up to a few tens of ms
+# (the plain version up to about a second)
+QSM_TIMING = (dict(trials=3, calls=2, warmup=1), dict(trials=1, calls=1, warmup=1))
+QSM_REFERENCE_ITERATIONS, QSM_RECIPE_STEPS, QSM_PROFILE_START = 16, 18, 6
+# the accumulation check and the card-against-CPU step: a volume cut to
+# 64x64x32
+QSM_CUT = (64, 64, 32)
+# Two micro-steps of 2 with accumulate_steps=2 against one step of 4 (SGD,
+# no BatchNorm, no dropout: the loss is a mean of per-subject terms), the
+# update ||d_accumulated - d_full|| / ||d_full||: float32 sums over the
+# batch in another split through 25 convs forward and backward.
+QSM_ACCUMULATION_TOL = 1e-4
+DWI_ITERATIONS, DEBUG_ITERATIONS = 6, 2
+# the HybridHostAugment.apply call of the fast DWI run that runs under
+# cProfile
+PROFILED_APPLY = 3
+
+
+def qsm_volumes(rng: np.random.Generator):
+    """One qsm subject on QSM_GRID: MPRAGE and QSM (float32) with the 17 deep
+    grey matter structures of DGM_LABEL_VALUES as blocks inside QSM_CROP
+    (left structures, odd ids, in the lower half of W, the left hemisphere
+    of QSM_AFFINE's positive x axis), the internal capsule (17) and the
+    thalami's pulvinar (7, 8) maps."""
+    W, H, D = QSM_GRID
+    dgm = np.zeros((1, W, H, D), np.int16)
+    lo = QSM_CROP[0::2]
+    hi = (W - QSM_CROP[1], H - QSM_CROP[3], D - QSM_CROP[5])
+    block = [max((b - a) // k, 1) for a, b, k in zip(lo, hi, (12, 12, 16))]
+    mid = W // 2
+    for v in qsm_config.DGM_LABEL_VALUES.values():
+        x = int(rng.integers(lo[0], mid - block[0])) if v % 2 else \
+            int(rng.integers(mid, hi[0] - block[0]))
+        y, z = (int(rng.integers(a, b - n)) for a, b, n in zip(lo[1:], hi[1:], block[1:]))
+        dgm[0, x:x + block[0], y:y + block[1], z:z + block[2]] = v
+    fg = (dgm > 0).astype(np.float32)
+    t1 = rng.gamma(4.0, 0.25, dgm.shape).astype(np.float32) + 2.0 * fg
+    qsm = rng.normal(0.0, 0.05, dgm.shape).astype(np.float32) + 0.1 * fg
+    ic = np.where(dgm == 17, dgm, 0).astype(np.int16)
+    pulv = np.where(np.isin(dgm, (7, 8)), dgm, 0).astype(np.int16)
+    return {"MPRAGE.nii": t1, "QSM.nii": qsm, "vB_PS_r.nii.gz": dgm, "IC.nii.gz": ic,
+            "pulv.nii.gz": pulv}
+
+
+def write_qsm_dataset(root, seed):
+    """qsm's layout under ``root``: subjects/<name>/{MPRAGE, QSM, vB_PS_r, IC,
+    pulv}, the two subjects of the configuration's validation cohort and
+    four training subjects."""
+    rng = np.random.default_rng(seed)
+    for name in [*qsm_config.VAL_SUBJECTS, *QSM_TRAINING]:
+        folder = os.path.join(root, "subjects", name)
+        os.makedirs(folder)
+        for file_name, data in qsm_volumes(rng).items():
+            write_nifti(os.path.join(folder, file_name), data, QSM_AFFINE)
+
+
+def qsm_expected_launches(dtype, n, steps, remat, sweeps):
+    """Forward, dX and dW launches by shape: ``steps`` micro-steps at batch
+    ``n`` (with remat the blocks' 24 convs run again in the backward; the
+    out conv, the only one with QSM_OUT_CHANNELS, does not) and ``sweeps``
+    validation forwards of the two validation subjects (N=2)."""
+    fwd, dx, dw = Counter(), Counter(), Counter()
+    for spatial, cin, cout, m in QSM_CONV_CLASSES:
+        recomputed = m if remat and cout != QSM_OUT_CHANNELS else 0
+        fwd[(str(dtype), n, *spatial, cin, cout)] += (m + recomputed) * steps
+        fwd[(str(dtype), 2, *spatial, cin, cout)] += m * sweeps
+        dw[(str(dtype), n, *spatial, cin, cout)] += m * steps
+        if cin != QSM_IN_CHANNELS:
+            dx[(str(dtype), n, *spatial, cout, cin)] += m * steps
+    return {"fwd": +fwd, "dx": +dx, "dw": +dw}
+
+
+def qsm_kernel_phase(device, seed, card):
+    """The forward, dX and dW at the nine qsm classes at N=4 and N=2 in both
+    dtypes, each checked and timed. Returns the rows at the (N, dtype) of
+    each training run (the kernels line) and the rows at the other two
+    (printed and summed, not run on the main path)."""
+    rows, others = [], []
+    for i, (n, dtype) in enumerate(QSM_RUNS + ((4, torch.bfloat16), (2, torch.float32))):
+        got = (kernel_phase(device, n, seed + 2 * i, card, QSM_CONV_CLASSES, (dtype,),
+                            QSM_TIMING)
+               + grad_kernel_phase(device, n, seed + 2 * i + 1, card, QSM_CONV_CLASSES,
+                                   QSM_IN_CHANNELS, (dtype,), QSM_TIMING))
+        (rows if (n, dtype) in QSM_RUNS else others).extend(got)
+    return rows, others
+
+
+@contextlib.contextmanager
+def banking_watch(moves):
+    """Record, for each MultiSteps micro-step, whether the inner optimizer
+    stepped and, as a boolean tensor on the card, whether any parameter
+    moved (one flat copy of the parameters before, one comparison after).
+    Nothing here waits for the card, so the loop still runs ahead of it;
+    read the tensors after the run."""
+    original = tsp.MultiSteps.step
+
+    def step(self):
+        before = torch.cat([p.detach().reshape(-1) for p in self._params()])
+        emitted = original(self)
+        after = torch.cat([p.detach().reshape(-1) for p in self._params()])
+        moves.append((emitted, (before != after).any()))
+        return emitted
+
+    with patched(tsp.MultiSteps, "step", step):
+        yield
+
+
+def qsm_trainer_run(card, root, logs, recipe, drop_contours):
+    """qsm's configuration at full width on whole volumes: the reference
+    (batch 4, f32, the default path, 4 threads) or the configuration's
+    recipe (microbatch 2 with accumulate_steps=2, tpu_fast_path, bf16),
+    PROFILED_ITERATIONS plain iterations profiled within the run (left out
+    of its rate). Asserts the launches per micro-step by class, the
+    iteration-0 sweep and, for the recipe, that the parameters move on
+    every second micro-step only. Returns the launches per micro-step."""
+    kwargs = dict(tpu_fast_path=True, microbatch=2, compute_dtype="bfloat16") if recipe else {}
+    n, dtype = QSM_RUNS[1] if recipe else QSM_RUNS[0]
+    iterations = QSM_RECIPE_STEPS if recipe else QSM_REFERENCE_ITERATIONS
+    context = qsm_config.get_context(variables={"DATASET_PATH": root}, crop=QSM_CROP,
+                                     filters=FILTERS, **kwargs)
+    if drop_contours:
+        without_contour_images(context)
+    context.init_components()
+    logger = ProfilingFileLogger(logs).profile(QSM_PROFILE_START)
+    moves = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with banking_watch(moves) if recipe else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        context.trainer.train(context, max_iterations=iterations, num_workers=TRAINER_WORKERS,
+                              logger=logger)
+        wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moves = [(emitted, bool(moved)) for emitted, moved in moves]
+    expected = qsm_expected_launches(dtype, n, iterations, recipe, sweeps=1)
+    assert counts == expected, (counts, expected)
+    per_step = {kind: sum(v for k, v in c.items() if k[1] == n and k[0] == str(dtype))
+                for kind, c in qsm_expected_launches(dtype, n, 1, recipe, 0).items()}
+    if recipe:
+        optimizer = context.trainer._train_state.opt_state
+        assert isinstance(optimizer, tsp.MultiSteps) and optimizer.every_k == 2
+        assert [emitted for emitted, _ in moves] == [i % 2 == 1 for i in range(iterations)]
+        assert [moved for _, moved in moves] == [i % 2 == 1 for i in range(iterations)], moves
+        assert optimizer.gradient_step == iterations // 2
+        assert all(p.dtype == torch.float32 for p in context.model.params.values())
+    records = read_records(logger)
+    assert [r["iteration"] for r in records] == list(range(iterations))
+    assert {"segmentation_eval", "training_segmentation_eval", "model_score"} <= set(records[0])
+    assert np.isfinite(records[0]["model_score"]) and all(np.isfinite(r["loss"]) for r in records)
+    window = range(logger.start, logger.stop + 2)
+    rate, text = split_text(plain_iterations([r for r in records if r["iteration"] not in window],
+                                             0), iterations, wall_s)
+    # qsm's pipeline is deterministic: the fast path derives no device augmentation
+    label = ("qsm recipe (microbatch 2, accumulate_steps=2, tpu_fast_path, bf16): "
+             f"{fast_path_text(context.trainer, augmented=False)}" if recipe
+             else f"qsm reference (batch 4, f32, num_workers={TRAINER_WORKERS})")
+    banking = (f"; parameters moved after micro-steps {[i for i, (_, m) in enumerate(moves) if m]}"
+               f" only (gradient_step {context.trainer._train_state.opt_state.gradient_step})"
+               if recipe else "")
+    print(f"{label}: {text} (iterations {window.start}-{window.stop - 1} left out: "
+          f"{profile_text(logger)}); seconds by timer entry over the run: "
+          f"{timer_totals(records)}; launches per micro-step forward {per_step['fwd']}, dX "
+          f"{per_step['dx']}, dW {per_step['dw']} at N={n} {DTYPE_NAMES[dtype]}"
+          f"{' (24 recomputed by remat)' if recipe else ''}, 25 forward in the iteration-0 "
+          f"sweep at N=2; iteration-0 sweep "
+          f"{records[0]['timer']['model_forward_evaluation'] * 1e3:.1f} ms; max_memory_allocated "
+          f"{peak} bytes; losses {records[0]['loss']:.6f} -> {records[-1]['loss']:.6f}"
+          f"{banking} [{card}]", flush=True)
+    del context
+    torch.cuda.empty_cache()
+    return {kind: Counter({k: v // iterations for k, v in c.items() if k[1] == n})
+            for kind, c in counts.items()}
+
+
+def qsm_batch(rng, n, spatial=QSM_CUT):
+    """A channel-first batch of qsm's shapes: X (N, 2, ...) and one-hot y of
+    10 classes (N, 10, ...)."""
+    X = rng.normal(size=(n, QSM_IN_CHANNELS, *spatial)).astype(np.float32)
+    ids = rng.integers(0, QSM_OUT_CHANNELS, size=(n, *spatial))
+    return {"X": X, "y": np.moveaxis(np.eye(QSM_OUT_CHANNELS, dtype=np.float32)[ids], -1, 1)}
+
+
+def qsm_accumulation_check(card, seed):
+    """On the card: NestedResUNet(2 -> 10, filters=40, use_norm=False) at
+    dropout 0 on a cut volume; two micro-steps of N=2 with SGD(lr=0.1,
+    accumulate_steps=2) against one step of N=4 with SGD(lr=0.1) from the
+    same weights: the same update within QSM_ACCUMULATION_TOL; the first
+    micro-step moves nothing."""
+    torch.manual_seed(seed)
+    state_dict = NestedResUNet(QSM_IN_CHANNELS, QSM_OUT_CHANNELS, filters=FILTERS,
+                               use_norm=False).state_dict()
+    batch = qsm_batch(np.random.default_rng(seed), 4)
+
+    def run(optimizer, batches):
+        model = SegModel(NestedResUNet(QSM_IN_CHANNELS, QSM_OUT_CHANNELS, filters=FILTERS,
+                                       use_norm=False))
+        model.load_state_dict(state_dict)
+        state = create_train_state(model, optimizer, batches[0])
+        step = make_train_step(model.module, HybridLogisticDiceLoss(), optimizer)
+        after = []
+        for b in batches:
+            state, _, _ = step(state, collate_to_device(b), None)
+            after.append(torch.cat([p.detach().reshape(-1) for p in state.params.values()]))
+        return after
+
+    init = torch.cat([v.reshape(-1) for v in state_dict.values()]).cuda()
+    with uncounted():
+        [full] = run(SGD(lr=0.1), [batch])
+        # the same step on the batch in another order: the same update summed
+        # in another order, the scale of float32 rounding alone
+        [permuted] = run(SGD(lr=0.1), [{k: v[[2, 3, 0, 1]] for k, v in batch.items()}])
+        banked, accumulated = run(SGD(lr=0.1, accumulate_steps=2),
+                                  [{k: v[:2] for k, v in batch.items()},
+                                   {k: v[2:] for k, v in batch.items()}])
+    torch.cuda.synchronize()
+    assert torch.equal(banked, init), "parameters moved on a banked micro-step"
+    d_full = full - init
+    rel, floor = (((d - d_full).norm() / d_full.norm()).item()
+                  for d in (accumulated - init, permuted - init))
+    print(f"qsm accumulation on the card (NestedResUNet 2->10 filters {FILTERS}, no BatchNorm, "
+          f"dropout 0, {'x'.join(map(str, QSM_CUT))}): 2 micro-steps of N=2 with "
+          f"accumulate_steps=2 against 1 step of N=4, SGD lr 0.1: ||d_acc - d_full|| / "
+          f"||d_full|| {rel:.3g} (limit {QSM_ACCUMULATION_TOL}); the N=4 step on the batch "
+          f"reordered against it {floor:.3g}; the banked micro-step moved nothing [{card}]",
+          flush=True)
+    assert rel <= QSM_ACCUMULATION_TOL
+
+
+def qsm_cpu_comparison(card, seed):
+    """One f32 step of qsm's network (with BatchNorm, dropout 0) and Adam on
+    one cut volume on the card and on the port on the CPU, as phase 9."""
+    torch.manual_seed(seed + 1)
+    state_dict = NestedResUNet(QSM_IN_CHANNELS, QSM_OUT_CHANNELS, filters=FILTERS).state_dict()
+    one = qsm_batch(np.random.default_rng(seed + 1), 1)
+    with uncounted():
+        cpu_train_comparison(
+            card, f"qsm train f32 vs CPU port ({'x'.join(map(str, QSM_CUT))}, dropout 0)",
+            lambda: NestedResUNet(QSM_IN_CHANNELS, QSM_OUT_CHANNELS, filters=FILTERS),
+            lambda: Adam(lr=2e-4), HybridLogisticDiceLoss(), state_dict, one)
+
+
+@contextlib.contextmanager
+def hybrid_watch(applies, profiles):
+    """Time each HybridHostAugment.apply on the host (the regeneration and
+    the enqueue of its upload; no synchronize, which would serialize the
+    prefetch slot) with its upload bytes, check on the first call that the
+    splice leaves every cached channel but the regenerated ones as
+    gathered, and run call PROFILED_APPLY under cProfile (its pstats in
+    ``profiles``; its time is not in ``applies``)."""
+    original = HybridHostAugment.apply
+    calls = itertools.count()
+
+    def apply(self, X, indices):
+        call = next(calls)
+        before = X.clone() if call == 0 else None
+        profile = cProfile.Profile() if call == PROFILED_APPLY else None
+        t0 = time.perf_counter()
+        if profile is not None:
+            out = profile.runcall(original, self, X, indices)
+            profiles.append(pstats.Stats(profile))
+        else:
+            out = original(self, X, indices)
+            applies.append(((time.perf_counter() - t0) * 1e3, self.upload_bytes, X.shape))
+        if before is not None:
+            regenerated = {c for off, n in self._slots for c in range(off, off + n)}
+            others = [c for c in range(X.shape[-1]) if c not in regenerated]
+            assert others and torch.equal(out[..., others], before[..., others])
+            assert not torch.equal(out[..., sorted(regenerated)], before[..., sorted(regenerated)])
+        return out
+
+    with patched(HybridHostAugment, "apply", apply):
+        yield
+
+
+def host_profile_text(stats, top=8):
+    """The ``top`` functions of a cProfile run by their own time: ms, calls
+    and where (file:line function, the file by its last two parts)."""
+    entries = sorted(stats.stats.items(), key=lambda item: -item[1][2])[:top]
+    total = sum(tt for _, _, tt, _, _ in stats.stats.values())
+    return f"{total * 1e3:.2f} ms in all; " + "; ".join(
+        f"{'/'.join(file.split(os.sep)[-2:])}:{line} {name} {tt * 1e3:.2f} ms ({nc} calls)"
+        for (file, line, name), (_, nc, tt, _, _) in entries)
+
+
+def dwi_phase(card, seed, root, tmp, drop_contours):
+    """dmri_hippo's DWI augmentation modes on phase 11's dataset with a full
+    DWI series per subject: run.py augmentation_experiment
+    --augmentation-mode combined on the default path and with
+    --tpu-fast-path (the hybrid device cache), then run.py debug."""
+    t0 = time.perf_counter()
+    series = write_full_dwi(root, seed + 41)
+    print(f"qsm-dwi: full_dwi of {len(DWI_BVALS)} volumes ({series} bytes) and its gradient "
+          f"table written for {sum(HIPPO_SUBJECTS.values())} subjects in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with cli_contexts(drop_contours):
+        for fast in (False, True):
+            applies, profiles = [], []
+            logs = os.path.join(tmp, f"dwi-combined{'-fast' if fast else ''}")
+            args = cli_run_module.build_parser().parse_args(
+                ["augmentation_experiment", root, logs, "--augmentation-mode", "combined",
+                 "--max-iterations", str(DWI_ITERATIONS), "--num-workers", str(TRAINER_WORKERS)]
+                + (["--tpu-fast-path"] if fast else []))
+            with hybrid_watch(applies, profiles):
+                _, wall, _, counts = cli_run({}, lambda: args.func(args))
+            label = "run.py augmentation_experiment combined" + (" --tpu-fast-path" if fast
+                                                                  else "")
+            cli_train_checks(card, label, logs, wall, counts, DWI_ITERATIONS)
+            # one batch per iteration and the one prefetched after the last
+            assert len(applies) + len(profiles) == (DWI_ITERATIONS + 1 if fast else 0)
+            if fast:
+                ms = [a[0] for a in applies]
+                x_bytes = int(np.prod(applies[0][2])) * 4
+                print(f"qsm-dwi hybrid: HybridHostAugment.apply median {statistics.median(ms):.2f}"
+                      f" ms on the host ({len(ms)} calls: " + ", ".join(f"{m:.1f}" for m in ms)
+                      + f"); uploaded {applies[0][1]} bytes per batch (the regenerated mean_dwi "
+                      f"channel; the batch's X is {x_bytes} bytes); the other cached channels "
+                      f"unchanged by the splice [{card}]", flush=True)
+                print(f"qsm-dwi hybrid: call {PROFILED_APPLY} of HybridHostAugment.apply under "
+                      f"cProfile, by own time: {host_profile_text(profiles[0])}", flush=True)
+        logs = os.path.join(tmp, "dwi-debug")
+        args = cli_run_module.build_parser().parse_args(
+            ["debug", root, logs, "--max-iterations", str(DEBUG_ITERATIONS)])
+        _, wall, _, counts = cli_run({}, lambda: args.func(args))
+    # batch 1 (2 half-volumes) per iteration, and the validation sweep at
+    # iteration 0 over the 8 validation subjects at batch 1
+    validation = HIPPO_SUBJECTS["validation"] + HIPPO_SUBJECTS["ab300"]
+    expected = expected_train_launches(torch.float32, DEBUG_ITERATIONS, 2)
+    expected["fwd"] = expected["fwd"] + expected_launches(torch.float32, validation, 2)
+    assert counts == expected, counts
+    [run_dir] = [os.path.join(logs, d) for d in os.listdir(logs)]
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["iteration"] for r in records] == list(range(DEBUG_ITERATIONS))
+    assert all(np.isfinite(r["loss"]) for r in records)
+    print(f"cli run.py debug (combined, batch 1): {DEBUG_ITERATIONS} iterations in {wall:.3f} s "
+          f"({DEBUG_ITERATIONS / wall:.3f} iterations/s over the CLI call, the iteration-0 sweep "
+          f"of {validation} subjects at batch 1 included); launches per iteration forward "
+          f"{CONVS_PER_FORWARD}, dX {DX_PER_STEP}, dW {CONVS_PER_FORWARD} at N=2, "
+          f"{CONVS_PER_FORWARD * validation} forward in the sweep [{card}]", flush=True)
+
+
+def qsm_dwi_phase(card, seed, root, tmp, drop_contours, device):
+    """Phase 14: the qsm kernel classes, qsm's reference and recipe trainers,
+    the accumulation and card-against-CPU checks, then the DWI modes.
+    Returns the kernel rows with their launches per micro-step."""
+    t0 = time.perf_counter()
+    rows, others = qsm_kernel_phase(device, seed + 51, card)
+    print(f"qsm-dwi kernels: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    qsm_root = os.path.join(tmp, "qsm")
+    t1 = time.perf_counter()
+    write_qsm_dataset(qsm_root, seed + 52)
+    print(f"qsm-dwi: qsm dataset of {2 + len(QSM_TRAINING)} subjects on "
+          f"{'x'.join(map(str, QSM_GRID))} written in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    launches = {}
+    for recipe in (False, True):
+        per_step = qsm_trainer_run(card, qsm_root, os.path.join(tmp, f"qsm-logs-{recipe}"),
+                                   recipe, drop_contours)
+        for kind, c in per_step.items():
+            launches.setdefault(kind, Counter()).update(c)
+    for row in rows:
+        row["launches"] = launches[row["_kind"]][row["_key"]]
+        assert row["launches"] > 0, row["name"]
+    qsm_accumulation_check(card, seed + 53)
+    qsm_cpu_comparison(card, seed + 54)
+    shutil.rmtree(qsm_root)
+    dwi_phase(card, seed, root, tmp, drop_contours)
+    step_totals("per qsm reference micro-step (N=4 f32)", [r for r in rows if r["_key"][1] == 4],
+                lambda row: row["launches"], card)
+    step_totals("per qsm recipe micro-step (N=2 bf16)", [r for r in rows if r["_key"][1] == 2],
+                lambda row: row["launches"], card)
+    # the other two (N, dtype) at a micro-step's launches without remat
+    for n, dtype in ((4, torch.bfloat16), (2, torch.float32)):
+        per_step = qsm_expected_launches(dtype, n, 1, False, 0)
+        step_totals(f"per qsm micro-step at N={n} {DTYPE_NAMES[dtype]} (not run; 25/23/25 "
+                    f"launches)", [r for r in others if r["_key"][1] == n],
+                    lambda row: per_step[row["_kind"]][row["_key"]], card)
+    print(f"qsm-dwi phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2816,9 +3319,10 @@ def main() -> int:
     grad_rows = grad_kernel_phase(device, half_batch, args.seed, card)
     ms_rows = kernel_phase(device, 1, args.seed + 6, card, MS_CONV_CLASSES)
     check_classes(device, args.seed + 8, card, MS_LARGE_BATCH, MS_LARGE_CLASSES)
-    ms_train_rows = (kernel_phase(device, MS_TRAIN_BATCH, args.seed + 13, card, MS_CONV_CLASSES)
+    ms_train_rows = (kernel_phase(device, MS_TRAIN_BATCH, args.seed + 13, card, MS_CONV_CLASSES,
+                                  timing=MS_TRAIN_TIMING)
                      + grad_kernel_phase(device, MS_TRAIN_BATCH, args.seed + 14, card,
-                                         MS_CONV_CLASSES, MS_IN_CHANNELS))
+                                         MS_CONV_CLASSES, MS_IN_CHANNELS, timing=MS_TRAIN_TIMING))
     slice_phase(card, args.seed, rows)
     tta_phase(card, args.seed, tta_rows)
     msseg2_phase(card, args.seed, ms_rows)
@@ -2858,11 +3362,13 @@ def main() -> int:
             trainer_phase(card, root, ms_root, tmp, drop_contours is not None)
             fast_path_phase(card, args.seed, root, ms_root, tmp, drop_contours is not None)
             cli_phase(card, args.seed, root, ms_root, tmp, drop_contours is not None)
+            qsm_rows = qsm_dwi_phase(card, args.seed, root, tmp, drop_contours is not None,
+                                     device)
     finally:
         shutil.rmtree(ms_root)
 
     rows = [{key: value for key, value in row.items() if not key.startswith("_")}
-            for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows]
+            for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,7 +38,8 @@ from .models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientations
 from .post_processing import (keep_components, remove_holes, remove_small_components,
                               sort_by_size, unsort_by_size)
 from .prediction import PatchPredict, Predictor, StandardPredict, add_evaluation_labels
-from .training import SGD, Adam, SegModel, collate_to_device, create_train_state, make_train_step
+from .training import (SGD, Adam, MultiSteps, SegModel, collate_to_device, create_train_state,
+                       make_train_step)
 from .training.context import Context, Ref, list_checkpoint_files
 from .training.trainer import ScheduledEvaluation, SegmentationTrainer
 from .transforms import *  # noqa: F401,F403

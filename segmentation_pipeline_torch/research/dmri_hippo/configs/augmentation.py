@@ -9,13 +9,14 @@ training pipeline according to ``augmentation_mode``:
 - ``dwi_reconstruction`` — physics-aware mean-DWI resynthesis only
 - ``combined``         — DWI resynthesis followed by the standard block
 
-The two DWI modes need ``ReconstructMeanDWI``, which the port does not have
-yet: they raise naming its ROADMAP item.
+The two DWI modes load the full 4-D DWI series and its gradient table
+(``full_dwi.*``, ``full_dwi_grad.b``) beside the base config's images.
 """
 import os
 
 from segmentation_pipeline_torch import (
     Compose,
+    ImageLoader,
     OneOf,
     RandomBiasField,
     RandomBlur,
@@ -23,24 +24,21 @@ from segmentation_pipeline_torch import (
     RandomFlip,
     RandomGamma,
     RandomNoise,
+    ReconstructMeanDWI,
     RescaleIntensity,
+    ScalarImage,
+    TensorLoader,
 )
-from segmentation_pipeline_torch.training.trainer import _not_ported
 
 from . import main_config as base_config
 
 MODES = ("no_augmentation", "standard", "dwi_reconstruction", "combined")
-DWI_MODES = ("dwi_reconstruction", "combined")
 
 
 def check_mode(augmentation_mode):
-    """Raise for a mode that is not one of MODES, or that the port cannot
-    build yet."""
+    """Raise for a mode that is not one of MODES."""
     if augmentation_mode not in MODES:
         raise ValueError(f"Invalid augmentation mode {augmentation_mode}")
-    if augmentation_mode in DWI_MODES:
-        raise _not_ported(f"augmentation_mode={augmentation_mode!r} (ReconstructMeanDWI)",
-                          "item 2 (the remaining host transforms)")
 
 
 def _standard_block() -> Compose:
@@ -61,6 +59,11 @@ def _standard_block() -> Compose:
     ], exclude=["full_dwi"])
 
 
+def _dwi_block() -> ReconstructMeanDWI:
+    return ReconstructMeanDWI(num_dwis=(1, 7), num_directions=(1, 3),
+                              directionality=(4, 10))
+
+
 def get_context(device=None, variables=None, augmentation_mode="standard", **kwargs):
     check_mode(augmentation_mode)
 
@@ -72,8 +75,22 @@ def get_context(device=None, variables=None, augmentation_mode="standard", **kwa
     # index 1 is the slot this ablation swaps
     dataset_defn = context.get_component_definition("dataset")
     training_pipeline = dataset_defn["params"]["transforms"]["training"]
+
+    if augmentation_mode in ("dwi_reconstruction", "combined"):
+        # the full 4-D DWI series and its gradient table, which the base
+        # config leaves out because the series is large
+        loaders = dataset_defn["params"]["subject_loader"].loaders
+        loaders.insert(0, ImageLoader(glob_pattern="full_dwi.*", image_name="full_dwi",
+                                      image_constructor=ScalarImage))
+        loaders.insert(1, TensorLoader(glob_pattern="full_dwi_grad.b", tensor_name="grad",
+                                       belongs_to="full_dwi"))
+
     if augmentation_mode == "no_augmentation":
         training_pipeline.transforms.pop(1)
     elif augmentation_mode == "standard":
         training_pipeline.transforms[1] = _standard_block()
+    elif augmentation_mode == "dwi_reconstruction":
+        training_pipeline.transforms[1] = _dwi_block()
+    elif augmentation_mode == "combined":
+        training_pipeline.transforms[1] = Compose([_dwi_block(), _standard_block()])
     return context

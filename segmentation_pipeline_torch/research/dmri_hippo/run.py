@@ -9,9 +9,8 @@ and one more, ``--device`` (the card unless it says ``cpu``):
     python -m segmentation_pipeline_torch.research.dmri_hippo.run augmentation_experiment_grid \
         <dataset> <logs> --task-id 7
 
-``debug`` (the "combined" mode), the grid's DWI task ids and
-``cascade_experiment`` raise before any work, naming the ROADMAP item that
-brings them.
+``cascade_experiment`` raises before any work, naming the ROADMAP item that
+brings it.
 """
 import argparse
 from itertools import product
@@ -57,7 +56,14 @@ def main(args):
 
 
 def debug(args):
-    augmentation.check_mode("combined")
+    dataset_path = prepare_dataset_files(args.dataset_path, args.work_path)
+    context = augmentation.get_context(
+        device=getattr(args, "device", None),
+        variables={"DATASET_PATH": str(dataset_path)},
+        augmentation_mode="combined", fold=args.fold,
+        predict_hbt=args.predict_hbt, training_batch_size=1)
+    _train(context, args.logging_path, args.max_training_time, num_workers=0,
+           validation_batch_size=1, max_iterations=args.max_iterations)
 
 
 def augmentation_experiment(args):
@@ -68,6 +74,10 @@ def augmentation_experiment(args):
         variables={"DATASET_PATH": str(dataset_path)},
         augmentation_mode=args.augmentation_mode, fold=args.fold,
         predict_hbt=args.predict_hbt,
+        # with --tpu-fast-path the dwi_reconstruction and combined modes take
+        # the hybrid split: the static channels stay in the device cache and
+        # mean_dwi is regenerated on the host per batch and spliced in
+        # (training/hybrid_augment.py)
         tpu_fast_path=getattr(args, "tpu_fast_path", False),
         compute_dtype=_compute_dtype(args))
     # preload also feeds the validation sweeps, which the device cache

@@ -23,9 +23,7 @@ augments every image of the subject), interpolate trilinearly, approximate
 augment the sampled patch rather than the whole volume. The elastic field
 uses the host's own separable cubic-B-spline matrices.
 
-Host code over the port's transform classes; the label transforms the port
-does not have yet (CustomRemoveLabels, CustomSequentialLabels) are absent
-from the commuting suffix, since no pipeline of the port can hold them.
+Host code over the port's transform classes.
 """
 from __future__ import annotations
 
@@ -38,6 +36,8 @@ from ..transforms import (
     CustomArgMax,
     CustomOneHot,
     CustomRemapLabels,
+    CustomRemoveLabels,
+    CustomSequentialLabels,
     FindInterestingSlice,
     ImageFromLabels,
     OneOf,
@@ -260,6 +260,7 @@ _STAGE_RANK = {"permute": 0, "flip": 1, "spatial": 2, "bias": 3,
 # augs; RescaleIntensity is special-cased (re-applied on device post-aug)
 _COMMUTING_SUFFIX = (ConcatenateImages, RenameProperty, CopyProperty,
                      CustomOneHot, CustomArgMax, CustomRemapLabels,
+                     CustomRemoveLabels, CustomSequentialLabels,
                      SetDataType, ReplaceNan, ImageFromLabels,
                      FindInterestingSlice, RescaleIntensity)
 
@@ -466,10 +467,11 @@ def derive_device_augmentation(
                 f"transforms) or augment on host "
                 f"(device_augmentation=None, device_cache=False). "
                 f"Host-only channel resynthesis (ReconstructMeanDWI-style) "
-                f"at the START of the stochastic window is handled by the "
-                f"hybrid derivation (derive_hybrid_augmentation), which the "
-                f"trainer runs on its own: the peeled transform runs on the "
-                f"host per batch.")
+                f"at the START of the stochastic window is supported by the "
+                f"hybrid fast path: the trainer derives it automatically "
+                f"(derive_hybrid_augmentation) — the regenerated channel is "
+                f"re-uploaded per batch while the static channels stay "
+                f"device-cached.")
 
     _check_suffix(suffix)
     final = _last_rescale(suffix)
@@ -547,9 +549,8 @@ def derive_hybrid_augmentation(
     holds the static channels; each batch the host regenerates only the
     affected images, re-applies the suffix intensity steps to them, and the
     trainer uploads + splices that channel block into the gathered cached X
-    before the derived fused device stages run (the JAX package's
-    training/hybrid_augment.py; the port's trainer raises on a hybrid spec
-    with the device cache until ROADMAP Queue 1 item 2 brings it).
+    before the derived fused device stages run
+    (training/hybrid_augment.py).
 
     Returns ``(host_pipeline, device_config, hybrid_spec)``; ``hybrid_spec``
     is None when the plain derivation suffices.  The cacheable host pipeline

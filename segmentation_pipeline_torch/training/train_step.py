@@ -85,15 +85,17 @@ def make_train_step(module: nn.Module, criterion, optimizer: OptimizerFactory,
     the module's device (``collate_to_device``). ``generator`` is the
     ``torch.Generator`` on that device that the blocks' channel dropout
     draws from. ``optimizer`` is the factory that made ``state.opt_state``;
-    the torch optimizer in the state carries the update. The returned
-    prediction is the train-mode one, float32 and detached.
+    the torch optimizer in the state carries the update (with
+    ``accumulate_steps > 1`` a ``MultiSteps`` that banks the gradients and
+    moves the parameters on every k-th step only). The returned prediction
+    is the train-mode one, float32 and detached.
     """
     compute_dtype = _normalize_compute_dtype(compute_dtype)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor], torch.Tensor]:
-        if not isinstance(state.opt_state, optimizer.optimizer_class):
+        if not optimizer.made(state.opt_state):
             raise TypeError(f"state.opt_state is a {type(state.opt_state).__name__}, not "
                             f"made by {optimizer!r}")
         module.train()

@@ -251,7 +251,7 @@ class SegmentationTrainer:
         live = self._train_state.opt_state if self._train_state is not None else None
         if self._restored_opt_state is None and live is not None:
             live_params = [p for group in live.param_groups for p in group["params"]]
-            if isinstance(live, optimizer.optimizer_class) and len(live_params) == len(params) \
+            if optimizer.made(live) and len(live_params) == len(params) \
                     and all(a is b for a, b in zip(live_params, params)):
                 return live
             print("trainer: optimizer/param structure changed since the previous train() "
@@ -268,7 +268,12 @@ class SegmentationTrainer:
               preload_training_data: bool = False,
               preload_validation_data: bool = False,
               num_workers: int = 0, validation_batch_size: int = 16,
-              logger: Logger = None):
+              logger: Logger = None, force_continue: bool = False):
+        """Train until ``max_iterations``, the time budget, early stopping
+        or a stop signal. ``force_continue`` forgets the best score so far,
+        so a run that early stopping ended trains on; the optimizer's live
+        state (moments, an accumulation's counters and gradients) carries
+        over from a previous call in the process, as in the JAX package."""
         logger = logger or NonLogger()
         # a previous signal-stopped run must not stop this one
         EXIT.clear()
@@ -282,6 +287,10 @@ class SegmentationTrainer:
             stop_time = time.time() + training_time - save_buffer
         else:
             stop_time = math.inf
+
+        if force_continue:
+            self.max_score = float("-inf")
+            self.max_score_iteration = self.iteration
 
         print("Initializing logger.")
         logger.setup(context)
@@ -605,11 +614,14 @@ class SegmentationTrainer:
         cohort's declared pipeline and leaves the deterministic remainder
         on the dataset; a second train() in the process reuses the first
         resolution (re-deriving from the remainder would find no
-        randomness). Exposed as ``resolved_device_augmentation``."""
-        device_aug, probe_subject = self.device_augmentation, None
+        randomness). Exposed as ``resolved_device_augmentation``; a
+        hybrid split for the device cache (a per-batch host stage,
+        training/hybrid_augment.py) as ``_resolved_hybrid_spec``."""
+        device_aug, probe_subject, hybrid_spec = self.device_augmentation, None, None
         if device_aug == "auto" and training_dataset.transform is getattr(
                 self, "_auto_aug_host_transform", object()):
             device_aug = self.resolved_device_augmentation
+            hybrid_spec = getattr(self, "_resolved_hybrid_spec", None)
         elif device_aug == "auto":
             from .auto_augment import derive_hybrid_augmentation, describe_config
 
@@ -620,15 +632,11 @@ class SegmentationTrainer:
                       "stochastic transforms; device augmentation disabled.")
                 device_aug = None
             else:
-                if hybrid_spec is not None:
-                    if self.device_cache:
-                        raise _not_ported(
-                            "Hybrid device augmentation (a host channel resynthesis "
-                            "with device_cache)",
-                            "item 2 (transforms/dwi.py and training/hybrid_augment.py)")
+                if hybrid_spec is not None and not self.device_cache:
                     # no cached batch to splice into: the peeled host stage
                     # runs inline, the derived window on the device
                     host_t = hybrid_spec.host_inline
+                    hybrid_spec = None
                 training_dataset.set_transform(host_t)
                 self._auto_aug_host_transform = host_t
                 # blur and elastic are in mm on the host: convert with the
@@ -646,6 +654,7 @@ class SegmentationTrainer:
                     msg += f" + per-batch host stage {hybrid_spec}"
                 print(f"device_augmentation='auto': {msg}")
         self.resolved_device_augmentation = device_aug
+        self._resolved_hybrid_spec = hybrid_spec
         return device_aug, probe_subject
 
     def _build_cache(self, training_dataset, device_aug, device, phases):
@@ -670,14 +679,31 @@ class SegmentationTrainer:
         # warp (bit-identical, fewer bytes gathered) and expand after it
         expand = device_aug is None
         batch_size = self.training_batch_size
+        hybrid_spec = self._resolved_hybrid_spec
+        self._hybrid_rt = None
         if isinstance(factory, StandardDataLoader):
             cache = DeviceDataCache(training_dataset.subjects, x_dtype=x_dtype, device=device,
                                     expand_onehot=expand)
+            if hybrid_spec is not None:
+                from .hybrid_augment import HybridHostAugment
+
+                # holds the pretransformed subjects the per-batch stage reads
+                self._hybrid_rt = HybridHostAugment(training_dataset.subjects, hybrid_spec,
+                                                    x_dtype=x_dtype, device=device)
+                print(f"hybrid device cache: static channels cached, {hybrid_spec.n_channels} "
+                      f"channel(s) ({', '.join(hybrid_spec.image_order)}) regenerated on host "
+                      f"per batch")
             sampler_cls = factory.sampler or RandomSampler
 
             def epoch():
                 return list(iter(sampler_cls(training_dataset)))
         else:
+            if hybrid_spec is not None:
+                raise ValueError(
+                    "hybrid device augmentation (host channel resynthesis) is not supported "
+                    "with PatchDataLoader — patches are sliced on the device, so the "
+                    "regenerated channel has no whole-volume slot to splice into; use "
+                    "StandardDataLoader or device_cache=False")
             cache = DevicePatchCache(training_dataset.subjects, sampler=factory.sampler,
                                      x_dtype=x_dtype, device=device, expand_onehot=expand)
             spv = factory.samples_per_volume
@@ -705,10 +731,12 @@ class SegmentationTrainer:
               f"{cache.nbytes / 2 ** 20:.0f} MiB on {device}")
         return cache, infinite_indices()
 
-    @staticmethod
-    def _fetch_cached(cache, idx, training_dataset, generator):
+    def _fetch_cached(self, cache, idx, training_dataset, generator):
         """A batch from the device cache and a thunk that makes its host
-        subjects, only when a scheduled training evaluator needs them."""
+        subjects, only when a scheduled training evaluator needs them. With
+        a hybrid split the regenerated channels are spliced into X here,
+        inside the prefetch slot, so the host work and the small upload run
+        under the device's step."""
         if hasattr(cache, "sample"):  # DevicePatchCache
             batch, starts = cache.sample(idx, generator)
 
@@ -724,7 +752,10 @@ class SegmentationTrainer:
 
         def subjects_thunk():
             return [copy.deepcopy(training_dataset.subjects[i]) for i in idx]
-        return subjects_thunk, cache.gather(idx)
+        batch = cache.gather(idx)
+        if self._hybrid_rt is not None:
+            batch["X"] = self._hybrid_rt.apply(batch["X"], idx)
+        return subjects_thunk, batch
 
     def get_filter_from_scheduled_evaluations(self, dataset, scheduled_evaluations):
         filters = []

@@ -1,9 +1,11 @@
 from .base import (Compose, IntensityTransform, LabelTransform, OneOf, RandomTransform,
                    SpatialTransform, Transform, TransformRecord, apply_inverse_on_new_subject,
                    filter_records, filter_transform, get_rng, invert_records, seed_all)
+from .dwi import ReconstructMeanDWI, ReconstructMeanDWIClassic
 from .intensity import (RandomBiasField, RandomBlur, RandomGamma, RandomNoise, ReplaceNan,
-                        RescaleIntensity, SetDataType)
-from .label import CustomArgMax, CustomOneHot, CustomRemapLabels, get_mask_from_masking_method
+                        RescaleIntensity, SetDataType, ZNormalization)
+from .label import (CustomArgMax, CustomOneHot, CustomRemapLabels, CustomRemoveLabels,
+                    CustomSequentialLabels, MergeLabels, get_mask_from_masking_method)
 from .misc import FindInterestingSlice, ImageFromLabels
 from .random_spatial import (Affine, ElasticDeformation, RandomAffine, RandomElasticDeformation,
                              RandomFlip, invert_displacement_field_voxels)
@@ -15,9 +17,11 @@ from .structural import (ConcatenateImages, CopyProperty, PermuteDimensions,
 __all__ = ["Compose", "IntensityTransform", "LabelTransform", "OneOf", "RandomTransform",
            "SpatialTransform", "Transform", "TransformRecord", "apply_inverse_on_new_subject",
            "filter_records", "filter_transform", "get_rng", "invert_records", "seed_all",
+           "ReconstructMeanDWI", "ReconstructMeanDWIClassic",
            "RandomBiasField", "RandomBlur", "RandomGamma", "RandomNoise", "ReplaceNan",
-           "RescaleIntensity", "SetDataType", "CustomArgMax", "CustomOneHot",
-           "CustomRemapLabels", "get_mask_from_masking_method", "FindInterestingSlice",
+           "RescaleIntensity", "SetDataType", "ZNormalization", "CustomArgMax", "CustomOneHot",
+           "CustomRemapLabels", "CustomRemoveLabels", "CustomSequentialLabels", "MergeLabels",
+           "get_mask_from_masking_method", "FindInterestingSlice",
            "ImageFromLabels", "Affine",
            "ElasticDeformation", "RandomAffine", "RandomElasticDeformation", "RandomFlip",
            "invert_displacement_field_voxels", "CopyAffine", "Crop", "CropOrPad", "CropToMask",

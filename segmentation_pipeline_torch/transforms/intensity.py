@@ -1,7 +1,7 @@
 """Intensity transforms, ported from
 segmentation_pipeline_tpu/transforms/intensity.py: the deterministic ones that
 the dmri_hippo and msseg2 ``default`` pipelines apply (``ReplaceNan``,
-``SetDataType``, ``RescaleIntensity``) and the random ones of msseg2's
+``SetDataType``, ``RescaleIntensity``), ``ZNormalization`` and the random ones of msseg2's
 ``training`` pipeline (``RandomNoise``, ``RandomBlur``, ``RandomGamma``,
 ``RandomBiasField``), which draw from ``get_rng()``. Host-side numpy and
 scipy.ndimage, as in the JAX package.
@@ -99,6 +99,40 @@ class RescaleIntensity(IntensityTransform):
             else:
                 data.fill(out_min)
             image.set_data(data)
+        return None
+
+
+class ZNormalization(IntensityTransform):
+    """Zero mean and unit std, optionally over a masked region
+    (``get_mask_from_masking_method``)."""
+
+    def __init__(self, masking_method=None, **kwargs):
+        super().__init__(**kwargs)
+        self.masking_method = masking_method
+
+    def apply_transform(self, subject):
+        from .label import get_mask_from_masking_method
+
+        for image in self.get_images(subject):
+            data = np.asarray(image.data, dtype=np.float32)
+            if self.masking_method is None:
+                # the moments of the whole array, without a boolean-index copy
+                mean, std = float(data.mean()), float(data.std())
+                if std < 1e-12:
+                    std = 1.0
+                image.set_data((data - mean) / std)
+                continue
+            mask = get_mask_from_masking_method(self.masking_method, subject, data)
+            values = data[mask]
+            if values.size == 0:
+                raise RuntimeError(
+                    f"ZNormalization mask {self.masking_method!r} selects no voxels for image "
+                    f"in subject {subject.get('name')!r} — normalizing would produce an "
+                    f"all-NaN image")
+            std = values.std()
+            if std < 1e-12:
+                std = 1.0
+            image.set_data((data - values.mean()) / std)
         return None
 
 

@@ -1,8 +1,10 @@
 """Label-map transforms, ported from segmentation_pipeline_tpu/transforms/label.py:
 masked remapping that keeps the ``label_values`` name->id dict in sync
 (``CustomRemapLabels``, with the 'Left'/'Right' half-space masks of
-``get_mask_from_masking_method``), and the invertible one-hot/argmax pair.
-Host-side numpy, as in the JAX package.
+``get_mask_from_masking_method``), label removal, sequential relabelling and
+the merge of paired left/right labels that qsm's configuration runs
+(``CustomRemoveLabels``, ``CustomSequentialLabels``, ``MergeLabels``), and
+the invertible one-hot/argmax pair. Host-side numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -107,6 +109,69 @@ class CustomRemapLabels(LabelTransform):
                                  **self._sel())
 
 
+class CustomRemoveLabels(LabelTransform):
+    """Remove labels (by name or id) to a background value; prunes
+    ``label_values`` entries; not invertible."""
+
+    def __init__(self, labels, background_label: int = 0, masking_method=None, **kwargs):
+        super().__init__(**kwargs)
+        self.labels = list(labels)
+        self.background_label = background_label
+        self.masking_method = masking_method
+
+    def apply_transform(self, subject):
+        for name, image in self.get_images_dict(subject).items():
+            label_ids = []
+            for label in self.labels:
+                if isinstance(label, int):
+                    label_ids.append(label)
+                elif isinstance(label, str):
+                    if "label_values" not in image:
+                        raise RuntimeError(
+                            "Image must have a 'label_values' dict to remove a label by name")
+                    label_ids.append(image["label_values"][label])
+                else:
+                    raise ValueError(f"Label must be str or int, got {label!r}")
+
+            remap = CustomRemapLabels(
+                remapping={lid: self.background_label for lid in label_ids},
+                masking_method=self.masking_method, include=[name], invertible=False)
+            remap(subject, record=False)
+
+            if "label_values" in image:
+                for label_name in [n for n, v in image["label_values"].items() if v in label_ids]:
+                    del image["label_values"][label_name]
+        return None
+
+    def is_invertible(self):
+        return False
+
+
+class CustomSequentialLabels(LabelTransform):
+    """Remap label ids to 1..K in the order of their current values."""
+
+    def __init__(self, masking_method=None, **kwargs):
+        super().__init__(**kwargs)
+        self.masking_method = masking_method
+
+    def apply_transform(self, subject):
+        for name, image in self.get_images_dict(subject).items():
+            if "label_values" in image:
+                # ranks the distinct values, not the names: after MergeLabels
+                # two names share one id, and a rank per name would give ids
+                # beyond the class count (as the JAX package does)
+                label_values = image["label_values"]
+                value_rank = {v: i + 1 for i, v in enumerate(sorted(set(label_values.values())))}
+                remapping = [(n, v, value_rank[v]) for n, v in label_values.items()]
+            else:
+                unique = [u for u in sorted(np.unique(np.asarray(image.data)).tolist()) if u != 0]
+                remapping = {int(u): i + 1 for i, u in enumerate(unique)}
+            remap = CustomRemapLabels(remapping, masking_method=self.masking_method,
+                                      include=[name])
+            remap(subject, record=False)
+        return None
+
+
 class CustomOneHot(LabelTransform):
     """One-hot encode 1-channel label maps; the class count comes from
     ``label_values`` when not given; the inverse is CustomArgMax."""
@@ -159,3 +224,41 @@ class CustomArgMax(LabelTransform):
 
     def inverse(self, args=None):
         return CustomOneHot(num_classes=self.num_classes, **self._sel())
+
+
+class MergeLabels(LabelTransform):
+    """Merge paired left/right labels under a hemisphere mask. Exactly one of
+    ``left_masking_method``/``right_masking_method`` is given: with the left
+    one, the left label's id becomes the right label's inside the left mask;
+    with the right one, the other way round."""
+
+    def __init__(self, merge_labels: Sequence[Tuple[str, str]],
+                 left_masking_method=None, right_masking_method=None, **kwargs):
+        super().__init__(**kwargs)
+        if (left_masking_method is None) == (right_masking_method is None):
+            raise ValueError(
+                "Exactly one of left_masking_method or right_masking_method must be provided")
+        for left, right in merge_labels:
+            if not isinstance(left, str) or not isinstance(right, str):
+                raise ValueError("Label identifiers must be strings")
+        self.merge_labels = list(merge_labels)
+        self.left_masking_method = left_masking_method
+        self.right_masking_method = right_masking_method
+
+    def apply_transform(self, subject):
+        for name, image in self.get_images_dict(subject).items():
+            if "label_values" not in image:
+                raise RuntimeError(f"label_values dict not found in image {name}")
+            label_values = image["label_values"]
+            if self.left_masking_method:
+                remapping = [(l, label_values[l], label_values[r]) for l, r in self.merge_labels]
+                masking_method = self.left_masking_method
+            else:
+                remapping = [(r, label_values[r], label_values[l]) for l, r in self.merge_labels]
+                masking_method = self.right_masking_method
+            remap = CustomRemapLabels(remapping, masking_method=masking_method, include=[name])
+            remap(subject, record=False)
+        return None
+
+    def is_invertible(self):
+        return False

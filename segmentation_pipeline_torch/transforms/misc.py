@@ -17,14 +17,17 @@ TypeLabelWeights = Tuple[str, Union[int, str], float]
 
 class ImageFromLabels(Transform):
     """Synthesize a weight image from label masks: the patch-sampling
-    probability map (ref image_from_labels.py:11). Each mask overwrites the
-    voxels it covers with its weight, later masks over earlier ones."""
+    probability map (ref image_from_labels.py:11). With ``mode="overwrite"``
+    each mask overwrites the voxels it covers with its weight, later masks
+    over earlier ones; with ``mode="additive"`` the weights of the masks
+    that cover a voxel add up."""
 
     def __init__(self, new_image_name: str, label_weights: Sequence[TypeLabelWeights],
-                 **kwargs):
+                 mode: str = "overwrite", **kwargs):
         super().__init__(**kwargs)
         self.new_image_name = new_image_name
         self.label_weights = list(label_weights)
+        self.mode = mode
 
     def apply_transform(self, subject):
         subject.check_consistent_spatial_shape()
@@ -44,7 +47,11 @@ class ImageFromLabels(Transform):
             label_data = np.asarray(label_map.data)
             if label_map.get("one_hot", False):
                 label_data = np.argmax(label_data, axis=0, keepdims=True)
-            output[label_data[0:1] == label_identifier] = weight
+            label_mask = label_data[0:1] == label_identifier
+            if self.mode == "additive":
+                output += label_mask.astype(np.float32) * weight
+            if self.mode == "overwrite":
+                output[label_mask] = weight
 
         affine = subject.get_first_image().affine
         subject[self.new_image_name] = ScalarImage(tensor=output, affine=affine)

@@ -9,6 +9,7 @@ scipy.ndimage, as in the JAX package.
 from __future__ import annotations
 
 import itertools
+from statistics import mean, median
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -240,21 +241,26 @@ def resample_array(
     return out
 
 
-_INTERP_ORDER = {"nearest": 0, "linear": 1}
+_INTERP_ORDER = {"nearest": 0, "linear": 1, "bspline": 3, "cubic": 3}
 
 
 class Resample(SpatialTransform):
     """Resample all images to a target spacing (tio.Resample semantics).
 
-    target: float or 3-tuple spacing in mm. Labels use nearest
-    interpolation; scalars use ``image_interpolation`` ("linear" or
-    "nearest").
+    target: float or 3-tuple spacing in mm, or the name of an image in the
+    subject whose grid to match. Labels use nearest interpolation; scalars
+    use ``image_interpolation``. ``scalars_only`` leaves label maps alone;
+    ``pre_affine_name`` is kept as the JAX package keeps it (it moves
+    nothing there either).
     """
 
-    def __init__(self, target, image_interpolation: str = "linear", **kwargs):
+    def __init__(self, target, image_interpolation: str = "linear",
+                 pre_affine_name: Optional[str] = None, scalars_only: bool = False, **kwargs):
         super().__init__(**kwargs)
         self.target = target
         self.image_interpolation = image_interpolation
+        self.pre_affine_name = pre_affine_name
+        self.scalars_only = scalars_only
 
     @staticmethod
     def parse_spacing(spacing):
@@ -262,7 +268,10 @@ class Resample(SpatialTransform):
             return (float(spacing),) * 3
         return tuple(float(s) for s in spacing)
 
-    def _target_grid(self, image):
+    def _target_grid(self, subject, image):
+        if isinstance(self.target, str) and self.target in subject:
+            ref = subject[self.target]
+            return ref.affine.copy(), ref.spatial_shape
         spacing = self.parse_spacing(self.target)
         affine = image.affine
         old_spacing = np.sqrt((affine[:3, :3] ** 2).sum(axis=0))
@@ -276,7 +285,9 @@ class Resample(SpatialTransform):
     def apply_transform(self, subject):
         sources = {}
         for name, image in self.get_images_dict(subject).items():
-            dst_affine, dst_shape = self._target_grid(image)
+            if self.scalars_only and isinstance(image, LabelMap):
+                continue
+            dst_affine, dst_shape = self._target_grid(subject, image)
             order = 0 if isinstance(image, LabelMap) else _INTERP_ORDER[self.image_interpolation]
             sources[name] = (image.affine.copy(), image.spatial_shape)
             data = resample_array(np.asarray(image.data), image.affine, dst_affine, dst_shape,
@@ -294,13 +305,19 @@ class Resample(SpatialTransform):
 
 class TargetResample(Resample):
     """Resample to a target spacing only if outside tolerance, choosing a
-    rational scale."""
+    rational scale. ``target_spacing`` may also name a statistic of the
+    first image's spacing ("mean", "median", "min", "max")."""
+
+    SPACING_MODES = {"mean": mean, "median": median, "min": min, "max": max}
 
     def __init__(self, target_spacing, tolerance, image_interpolation: str = "linear",
-                 **kwargs):
-        target_spacing = Resample.parse_spacing(target_spacing)
+                 pre_affine_name=None, scalars_only: bool = False, **kwargs):
+        if isinstance(target_spacing, str) and target_spacing not in self.SPACING_MODES:
+            raise ValueError(f"Spacing mode must be one of {tuple(self.SPACING_MODES)}")
+        if not isinstance(target_spacing, str):
+            target_spacing = Resample.parse_spacing(target_spacing)
         super().__init__(target=target_spacing, image_interpolation=image_interpolation,
-                         **kwargs)
+                         pre_affine_name=pre_affine_name, scalars_only=scalars_only, **kwargs)
         self.target_spacing = target_spacing
         self.tolerance = Resample.parse_spacing(tolerance)
 
@@ -324,7 +341,11 @@ class TargetResample(Resample):
 
     def apply_transform(self, subject):
         current = subject.get_first_image().spacing
-        target = self.target_spacing
+        if isinstance(self.target_spacing, str):
+            t = self.SPACING_MODES[self.target_spacing](current)
+            target = (t, t, t)
+        else:
+            target = self.target_spacing
 
         if all(abs(c - t) < tol for c, t, tol in zip(current, target, self.tolerance)):
             return None
@@ -333,7 +354,9 @@ class TargetResample(Resample):
                        for cur, tar, tol in zip(current, target, self.tolerance)]
 
         resample = Resample(target=tuple(new_spacing),
-                            image_interpolation=self.image_interpolation)
+                            image_interpolation=self.image_interpolation,
+                            pre_affine_name=self.pre_affine_name,
+                            scalars_only=self.scalars_only)
         return resample.apply_transform(subject)
 
 

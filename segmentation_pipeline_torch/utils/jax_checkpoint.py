@@ -20,7 +20,10 @@ it names onto the port:
 - optax's state classes onto plain containers with the same fields; the
   model's flax variables go through ``models/convert.py``, Adam's
   ``mu``/``nu``/``count`` become ``torch.optim.Adam``'s ``exp_avg``/
-  ``exp_avg_sq``/``step`` and SGD's momentum trace its ``momentum_buffer``.
+  ``exp_avg_sq``/``step`` and SGD's momentum trace its ``momentum_buffer``;
+  a ``MultiStepsState`` (gradient accumulation) becomes the state of the
+  port's ``MultiSteps``: its counters, its accumulated gradients and the
+  inner optimizer's state converted as above.
 - closures that the JAX context stored as cloudpickle bytes are read with
   the same mapping and stored again.
 
@@ -43,6 +46,7 @@ from torch import nn
 from ..models.convert import flax_to_state_dict
 from ..prediction import PatchPredict, StandardPredict
 from ..training.context import Context, _FunctionPayload, _restore, list_checkpoint_files
+from ..training.optimizers import MultiSteps
 from ..training.trainer import SegmentationTrainer, _not_ported
 
 JAX_PACKAGE = "segmentation_pipeline_tpu"
@@ -53,13 +57,13 @@ JAX_ONLY_MODULES = ("jax", "jaxlib", "flax", "orbax", "chex")
 NOT_PORTED_MODULES = {
     "segmentation_pipeline_tpu.parallel": "item 10 (multi-device)",
     "research.dmri_hippo.configs.cascade": "item 5 (cascade)",
-    "research.qsm_deep_grey_matter": "items 2 and 6 (the qsm configuration)",
 }
 
-# optax's state classes by name: their fields, or None where the state
-# needs a feature the port does not have
+# optax's state classes by name, with their fields
 OPTAX_STATES = {"ScaleByAdamState": ("count", "mu", "nu"), "TraceState": ("trace",),
-                "EmptyState": (), "MultiStepsState": None}
+                "EmptyState": (),
+                "MultiStepsState": ("mini_step", "gradient_step", "inner_opt_state",
+                                    "acc_grads", "skip_state")}
 
 # attributes of JAX objects that the port's objects lack, by class name:
 # the value the port implements, and the ROADMAP item that brings others
@@ -70,9 +74,6 @@ _JAX_ONLY = {
     "StandardPredict": {"refine_image": (None, "item 5 (cascade)")},
     "PatchPredict": {"mesh": (None, "item 10 (multi-device)"),
                      "volume_sharded": (False, "item 10 (multi-device)")},
-    "TargetResample": {"pre_affine_name": (None, "item 2 (the remaining host transforms)"),
-                       "scalars_only": (False, "item 2 (the remaining host transforms)")},
-    "ImageFromLabels": {"mode": ("overwrite", "item 2 (the remaining host transforms)")},
 }
 # run-time caches of the JAX objects, dropped whatever they hold
 _JAX_CACHES = {"StandardPredict": ("_confusion_plan",)}
@@ -89,12 +90,8 @@ def _optax_state(name):
     if name not in OPTAX_STATES:
         raise JaxCheckpointError(f"the checkpoint's optimizer state holds optax's {name}, "
                                  "which the port cannot convert")
-    fields = OPTAX_STATES[name]
-    if fields is None:
-        raise _not_ported(f"optax's {name} (gradient accumulation) in a checkpoint",
-                          "item 6 (gradient accumulation)")
     if name not in _state_classes:
-        _state_classes[name] = namedtuple(name, fields)
+        _state_classes[name] = namedtuple(name, OPTAX_STATES[name])
     return _state_classes[name]
 
 
@@ -204,9 +201,17 @@ def _find_states(opt_state):
         yield opt_state
 
 
+def _per_parameter(tree, names):
+    """A flax params tree -> numpy arrays in the order of ``names``."""
+    arrays = flax_to_state_dict({"params": tree})
+    return [arrays[name].numpy() for name in names]
+
+
 def _torch_optimizer_state(opt_state, definitions):
-    """optax's Adam or SGD state -> a torch optimizer's state dict (numpy),
-    for the model and optimizer the definitions build."""
+    """optax's Adam or SGD state, plain or inside a MultiStepsState -> the
+    state dict (numpy) of the torch optimizer, or of the port's MultiSteps
+    around it, that the definitions' optimizer factory makes for the
+    model."""
     module = _module_of(definitions)
     factory = next((d for d in definitions if d["name"] == "optimizer"), None)
     if module is None or factory is None:
@@ -214,21 +219,34 @@ def _torch_optimizer_state(opt_state, definitions):
                                  "definition beside it")
     optimizer = factory["constructor"](**_restore(factory["params"])).init(module.parameters())
     names = [name for name, _ in module.named_parameters()]
+    if type(opt_state).__name__ == "MultiStepsState":
+        if not isinstance(optimizer, MultiSteps):
+            raise JaxCheckpointError("the checkpoint accumulates gradients (MultiStepsState) "
+                                     "but its optimizer definition does not")
+        return {"inner": _inner_state(opt_state.inner_opt_state, optimizer.optimizer, names),
+                "mini_step": int(opt_state.mini_step),
+                "gradient_step": int(opt_state.gradient_step),
+                "acc_grads": _per_parameter(opt_state.acc_grads, names)}
+    if isinstance(optimizer, MultiSteps):
+        raise JaxCheckpointError("the optimizer definition accumulates gradients but the "
+                                 "checkpoint's state is not a MultiStepsState")
+    return _inner_state(opt_state, optimizer, names)
+
+
+def _inner_state(opt_state, optimizer, names):
+    """optax's Adam or SGD chain state -> ``optimizer``'s state dict (numpy)."""
     state = {}
     for found in _find_states(opt_state):
         if type(found).__name__ == "ScaleByAdamState":
             if int(found.count) == 0:
                 continue
-            mu = flax_to_state_dict({"params": found.mu})
-            nu = flax_to_state_dict({"params": found.nu})
-            for i, name in enumerate(names):
+            for i, (mu, nu) in enumerate(zip(_per_parameter(found.mu, names),
+                                             _per_parameter(found.nu, names))):
                 state.setdefault(i, {}).update(
-                    step=np.array(float(found.count), np.float32),
-                    exp_avg=mu[name].numpy(), exp_avg_sq=nu[name].numpy())
+                    step=np.array(float(found.count), np.float32), exp_avg=mu, exp_avg_sq=nu)
         elif type(found).__name__ == "TraceState":
-            trace = flax_to_state_dict({"params": found.trace})
-            for i, name in enumerate(names):
-                state.setdefault(i, {})["momentum_buffer"] = trace[name].numpy()
+            for i, trace in enumerate(_per_parameter(found.trace, names)):
+                state.setdefault(i, {})["momentum_buffer"] = trace
     return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
 
 

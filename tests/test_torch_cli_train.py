@@ -157,16 +157,10 @@ def _run_args(command, *extra):
     (lambda: ms_inference.main([MISSING, MISSING, "o.nii.gz", "--device-postprocess"]), "item 3"),
     (lambda: ms_inference.inference(None, None, "", "o.nii.gz", device_postprocess=True),
      "item 3"),
-    (lambda: _run_args("debug").func(_run_args("debug")), "item 2"),
-    (lambda: trun.augmentation_experiment(_run_args(
-        "augmentation_experiment", "--augmentation-mode", "dwi_reconstruction")), "item 2"),
-    (lambda: trun.augmentation_experiment_grid(_run_args(
-        "augmentation_experiment_grid", "--task-id", "15")), "item 2"),
-    (lambda: taugmentation.get_context(augmentation_mode="combined"), "item 2"),
     (lambda: trun.cascade_experiment(trun.build_parser().parse_args(
         ["cascade_experiment", MISSING, MISSING, "/nonexistent/logs"])), "item 5"),
 ], ids=["tta-mesh", "ensemble-affines", "device-postprocess", "inference-device-postprocess",
-        "debug", "dwi-mode", "grid-dwi-task", "combined-mode", "cascade"])
+        "cascade"])
 def test_unported_flags_raise_naming_their_item(call, item):
     """Each raises before it reads anything: the paths do not exist."""
     with pytest.raises(NotImplementedError, match=item):

@@ -73,8 +73,10 @@ def test_config_keys_and_values_match_jax(name):
 
 def test_tpu_fast_path_raises():
     """tpu_fast_path=True sets JAX's levers, device_cache and "auto"
-    device augmentation; what still raises on it is a hybrid split (a host
-    channel resynthesis, ROADMAP item 2) with the device cache."""
+    device augmentation. A hybrid split (a host channel resynthesis) with
+    the device cache raised here until training/hybrid_augment.py was
+    ported; now it resolves to the device window plus the per-batch host
+    stage, as in JAX."""
     from test_torch_trainer import Resynthesize
 
     variables = {"DATASET_PATH": "/data"}
@@ -91,8 +93,11 @@ def test_tpu_fast_path_raises():
         dataset.transform = tsp.Compose([
             Resynthesize(), tsp.RandomNoise(std=0.1, p=0.5),
             tsp.ConcatenateImages(image_names=["t1"], image_channels=[1], new_image_name="X")])
-        with pytest.raises(NotImplementedError, match="item 2"):
-            trainer._resolve_device_augmentation(dataset)
+        device_aug, _ = trainer._resolve_device_augmentation(dataset)
+        assert device_aug["noise_p"] == 0.5
+        assert trainer._resolved_hybrid_spec.image_order == ["t1"]
+        assert [type(t).__name__ for t in trainer._resolved_hybrid_spec.peeled] == \
+            ["Resynthesize"]
 
 
 def _tiny_context(tmp_path, scorer=module_level_score):

@@ -113,3 +113,27 @@ def test_entry_points_default_to_cuda(monkeypatch):
     model.device = torch.device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         tsp.create_train_state(model, tsp.Adam(), batch)
+
+
+@pytest.mark.parametrize("entry", ["qsm", "augmentation-dwi", "hybrid-host-augment"])
+def test_qsm_and_dwi_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    """The qsm configuration, the augmentation config's DWI modes and the
+    hybrid cache's host stage run on the card unless asked for the CPU."""
+    from segmentation_pipeline_torch.research.dmri_hippo.configs import augmentation
+    from segmentation_pipeline_torch.research.qsm_deep_grey_matter import qsm_deep_grey_matter
+    from segmentation_pipeline_torch.training.auto_augment import HybridSpec
+    from segmentation_pipeline_torch.training.hybrid_augment import HybridHostAugment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    variables = {"DATASET_PATH": str(tmp_path)}
+    make = {
+        "qsm": lambda **kw: qsm_deep_grey_matter.get_context(
+            variables=variables, microbatch=2, tpu_fast_path=True, **kw),
+        "augmentation-dwi": lambda **kw: augmentation.get_context(
+            variables=variables, augmentation_mode="combined", **kw),
+        "hybrid-host-augment": lambda **kw: HybridHostAugment(
+            [], HybridSpec([], [], {}, [], None), **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu")

@@ -238,16 +238,8 @@ def test_unported_contents_raise_naming_their_item(checkpoints):
     def cascade(c):
         _trainer(c)["params"]["train_predictor"].refine_image = "y_prior"
 
-    def accumulation(c):
-        import optax
-
-        state = _trainer(c)["state_dict"]["opt_state"]
-        _trainer(c)["state_dict"]["opt_state"] = optax.MultiStepsState(
-            mini_step=np.array(0), gradient_step=np.array(1), inner_opt_state=state,
-            acc_grads={}, skip_state=())
-
     for change, item in ((orbax, "item 8-rem"), (processes, "item 7-rem"),
-                         (cascade, "item 5"), (accumulation, "item 6")):
+                         (cascade, "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             convert_checkpoint_data(_jax_payload(ckpt, change))
 
@@ -259,6 +251,45 @@ def test_unported_contents_raise_naming_their_item(checkpoints):
 
     with pytest.raises(NotImplementedError, match="item 10"):
         convert_checkpoint_data(_jax_payload(ms_ckpt, mesh))
+
+
+def _find(value, cls_name, seen=None):
+    """Every object of class ``cls_name`` reachable from ``value``."""
+    seen = set() if seen is None else seen
+    if id(value) in seen:
+        return []
+    seen.add(id(value))
+    if isinstance(value, dict):
+        return [o for v in value.values() for o in _find(v, cls_name, seen)]
+    if isinstance(value, (list, tuple)):
+        return [o for v in value for o in _find(v, cls_name, seen)]
+    if hasattr(value, "__dict__") and not isinstance(value, type) \
+            and type(value).__module__.startswith(("segmentation_pipeline", "research")):
+        found = [value] if type(value).__name__ == cls_name else []
+        return found + _find(vars(value), cls_name, seen)
+    return []
+
+
+def test_resample_and_image_from_labels_options_convert(checkpoints):
+    """TargetResample's pre_affine_name and scalars_only and ImageFromLabels'
+    mode, which the port now has, convert with their values."""
+    _, ms_ckpt, _ = checkpoints["msseg2"]
+
+    def options(c):
+        dataset = next(d for d in c["component_definitions"] if d["name"] == "dataset")
+        for t in _find(dataset["params"], "TargetResample"):
+            t.pre_affine_name, t.scalars_only = "flair_time01", True
+        for t in _find(dataset["params"], "ImageFromLabels"):
+            t.mode = "additive"
+
+    converted = convert_checkpoint_data(_jax_payload(ms_ckpt, options))
+    dataset = next(d for d in converted["component_definitions"] if d["name"] == "dataset")
+    resamples = _find(dataset["params"], "TargetResample")
+    weights = _find(dataset["params"], "ImageFromLabels")
+    assert resamples and weights
+    assert all(isinstance(t, tsp.TargetResample) and t.pre_affine_name == "flair_time01"
+               and t.scalars_only for t in resamples)
+    assert all(isinstance(t, tsp.ImageFromLabels) and t.mode == "additive" for t in weights)
 
 
 def _closure_checkpoint(fn):

@@ -208,10 +208,17 @@ def test_optimizer_matches_optax(name, kwargs):
 
 
 def test_optimizer_factory_rejects_accumulation():
-    with pytest.raises(NotImplementedError):
-        toptim.Adam(lr=1e-3, accumulate_steps=4)
-    with pytest.raises(NotImplementedError):
-        toptim.SGD(accumulate_steps=2)
+    """accumulate_steps > 1 wraps the optimizer in MultiSteps (it raised
+    before gradient accumulation was ported); a factory rejects an
+    optimizer of the other kind as not its own."""
+    p = torch.nn.Parameter(torch.zeros(3))
+    adam, sgd = toptim.Adam(lr=1e-3, accumulate_steps=4), toptim.SGD(accumulate_steps=2)
+    wrapped = adam.init([p])
+    assert isinstance(wrapped, toptim.MultiSteps) and wrapped.every_k == 4
+    assert isinstance(wrapped.optimizer, torch.optim.Adam)
+    assert isinstance(sgd.init([p]).optimizer, torch.optim.SGD)
+    assert adam.made(wrapped) and not sgd.made(wrapped)
+    assert not adam.made(torch.optim.Adam([p])) and not toptim.Adam().made(wrapped)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

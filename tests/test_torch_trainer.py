@@ -7,8 +7,8 @@ FileLogger, from the same host seed. The losses, the schedule, the
 evaluator outputs and the checkpoint files must agree. Then, on the port
 alone: a resume from a checkpoint repeats the uninterrupted run bit for
 bit, an asynchronous save holds its own iteration's weights, early stops
-land on JAX's iterations, and what the port does not do yet raises (of the
-device levers, a hybrid split with the device cache).
+land on JAX's iterations, what the port does not do yet raises, and a
+hybrid split trains with the device cache, whichever lever is set first.
 
 Each iteration of the port starts from the weights and Adam moments the
 JAX run had at that iteration (``follow_jax``). Left to run freely, two
@@ -406,8 +406,8 @@ def test_async_save_holds_its_own_iteration(e2e, tmp_path, monkeypatch):
 
 
 class Resynthesize(tsp.RandomTransform):
-    """A host-only channel resynthesis in the shape of ReconstructMeanDWI
-    (which the port does not have yet): it regenerates t1 from itself."""
+    """A host-only channel resynthesis in the shape of ReconstructMeanDWI:
+    it regenerates t1 from itself."""
     mean_dwi_image_name, full_dwi_image_name = "t1", "t1_full"
 
     def apply_transform(self, subject):
@@ -433,10 +433,13 @@ def hybrid_training_pipeline():
 @pytest.mark.parametrize("case", ["device_cache", "device_augmentation", "mesh", "spatial_axis",
                                   "refine_image", "device_confusion_sweep"])
 def test_what_is_not_ported_raises(e2e, tmp_path, case):
-    """Of the device levers, a hybrid split (a host channel resynthesis,
-    ROADMAP item 2) raises with the device cache, whichever lever is set
-    first; without the cache the resynthesis runs inline on the host and
-    the device augmentation trains."""
+    """mesh, spatial_axis, refine_image and a device confusion sweep raise
+    naming their ROADMAP items. Of the device levers, a hybrid split (a
+    host channel resynthesis) raised with the device cache until
+    training/hybrid_augment.py was ported: now it trains with the cache,
+    whichever lever is set first, through the per-batch host stage; without
+    the cache the resynthesis runs inline on the host and the device
+    augmentation trains."""
     root, _, _, _ = e2e
 
     class RefinePredict(tsp.StandardPredict):
@@ -451,7 +454,7 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
               "device_confusion_sweep": {"validation_predictor": tsp.StandardPredict(
                   image_names=["X"], device_argmax=True, device="cpu")}}[case]
     item = {"refine_image": "item 5", "mesh": "item 10", "spatial_axis": "item 10",
-            "device_confusion_sweep": "item 3"}.get(case, "item 2")
+            "device_confusion_sweep": "item 3"}.get(case)
 
     def context_of(**trainer_kwargs):
         context = build_context(tsp, root, **trainer_kwargs)
@@ -461,9 +464,15 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
         return context
 
     context = context_of(**kwargs)
-    with pytest.raises(NotImplementedError, match=item):
+    if case in levers:
         context.init_components()
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
+        assert context.trainer._hybrid_rt is not None
+        assert context.trainer._hybrid_rt.spec.image_order == ["t1"]
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            context.init_components()
+            context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
     if case == "device_confusion_sweep":
         context = context_of(device_confusion=False, **kwargs)
         context.init_components()
