@@ -10,7 +10,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    convolutions and matmuls, so float32 stays float32 everywhere.
 2. build: nvcc builds both CUDA sources from segmentation_pipeline_torch/csrc
    (the conv kernel, which also runs the input gradient dX, and the weight
-   gradient dW), in parallel, and prints their -Xptxas -v logs.
+   gradient dW), in parallel, and prints their -Xptxas -v logs; g++ builds
+   the native connected-component labeller (csrc/ccl.cpp) that the host
+   post-processing and the instance evaluator label on.
 3. kernels: the 3x3x3 conv kernel at each (spatial size, Cin, Cout) class of
    NestedResUNet-40 at the serving batch (8 half-volumes) and at the TTA
    batch (32: 4 flips of 8 half-volumes), in float32 (3xTF32 on the tensor
@@ -182,8 +184,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    asserted), ms_inference on its checkpoint with and without
    --device-argmax (34 launches per patch; identical masks), ms_run in a
    subprocess on one raw FLAIR pair (its mask equals ms_inference's on the
-   staged folder); and the flags that raise (--tta-mesh, --ensemble-affines,
-   --device-postprocess, cascade_experiment) name their ROADMAP items.
+   staged folder); and the flags that raise (--tta-mesh, --ensemble-affines)
+   name their ROADMAP items.
 14. qsm-dwi: qsm's configuration (segmentation_pipeline_torch/research/
    qsm_deep_grey_matter: NestedResUNet(2 -> 10, filters=40) on the
    reference crop 120x144x96 of 256x288x128 volumes) and dmri_hippo's DWI
@@ -213,6 +215,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    uploaded per batch, the cached channels
    other than mean_dwi unchanged by the splice), then run.py debug for 2
    iterations.
+15. cascade-cleanup: (a) the dmri_hippo cascade (configs/cascade.py). The
+   kernels at its new classes at N=8 (the out conv 40 -> 4 with its dX 4 ->
+   40 and dW, and the classes of the basic_unet ModularUNet(3 -> 4, [40,
+   80, 120], depth 3) that dmri_hippo lacks), held against their plain
+   versions in float32 and bfloat16 (bit for bit on integers) and timed in
+   float32, the type the cascade trains in; a prior per subject of phase
+   11's dataset (whole_roi with 5% of its voxels flipped within their
+   hemisphere); run.py cascade_experiment for 6 iterations at full width
+   with 4 threads (25/23/25 launches per iteration, the 40 -> 4 class in
+   each, 25 in the iteration-0 sweep of the refined validation predictor;
+   iterations/s, the sweep's ms, peak memory); every transition matrix of
+   a served batch column-stochastic; one refined f32 step against the port
+   on the CPU and one profiled step; then --model-type basic_unet for one
+   iteration. (b) The fused cleanup: ms_inference's inference() with
+   device_postprocess on two msseg2 subjects of 144x192x144 in model
+   geometry (12 patches each, phase 13's msseg2 checkpoint): the fused path
+   taken, 34 forward launches per patch, the masks equal to the host
+   chain's on the same argmax voxel for voxel, device against host cleanup
+   ms and CC sweeps per call (the model's argmax and a thresholded FLAIR);
+   then the CLI with --device-postprocess on msseg2's dataset and the path
+   each subject took. (c) The device sweep reductions: dmri_hippo's
+   trainer with a device_argmax validation predictor and Segmentation and
+   InstanceSegmentation evaluators every iteration: the manager from probe
+   to on (the probe holds the device counts to the host chain's, exactly),
+   each sweep's ms by state beside a host-path run's, the bytes fetched per
+   subject; overlap_histogram_device against the host instance chain on
+   lesion masks of that grid, with a capacity it overflows.
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -249,6 +278,7 @@ from segmentation_pipeline_torch.core.nifti import read_nifti, write_nifti
 from segmentation_pipeline_torch.models import (BatchNorm, BlurConv3d, BlurConvTranspose3d,
                                                 Conv3d, ModularUNet, NestedResUNet,
                                                 flax_to_state_dict)
+from segmentation_pipeline_torch import native
 from segmentation_pipeline_torch.ops import build, conv3x3, convolution
 from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_dw,
                                                      conv3x3_s1p1_dw_plain, conv3x3_s1p1_dx,
@@ -257,8 +287,9 @@ from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_
 from segmentation_pipeline_torch.core.subject import collate_subjects
 from segmentation_pipeline_torch.data.loader import extract_patch
 from segmentation_pipeline_torch.ops.sliding_window import grid_locations
-from segmentation_pipeline_torch.prediction import (StandardPredict, reverse_split_and_flip,
-                                                    split_and_flip)
+from segmentation_pipeline_torch.prediction import (StandardPredict, apply_stochastic_matrix,
+                                                    reverse_split_and_flip, split_and_flip)
+from segmentation_pipeline_torch.research.dmri_hippo.configs import cascade as cascade_config
 from segmentation_pipeline_torch.research.dmri_hippo.configs import main_config as hippo_config
 from segmentation_pipeline_torch import run_inference as cli_run_inference
 from segmentation_pipeline_torch.research.dmri_hippo import evaluate as cli_evaluate
@@ -1647,7 +1678,7 @@ def step_totals(label, rows, launches_per_step, card):
 
 
 def cpu_train_comparison(card, name, make_module, make_optimizer, criterion, state_dict, one,
-                         sagittal_split=False):
+                         sagittal_split=False, refine_image=None):
     """One f32 train step on the channel-first batch ``one``, on the card and
     on the port on the CPU, from ``state_dict``: the loss and every
     parameter's gradient. One more CPU step, on the input changed by about
@@ -1662,7 +1693,8 @@ def cpu_train_comparison(card, name, make_module, make_optimizer, criterion, sta
         model.load_state_dict(state_dict)
         optimizer = make_optimizer()
         state = create_train_state(model, optimizer, batch)
-        step = make_train_step(model.module, criterion, optimizer, sagittal_split=sagittal_split)
+        step = make_train_step(model.module, criterion, optimizer, sagittal_split=sagittal_split,
+                               refine_image=refine_image)
         t0 = time.perf_counter()
         state, loss_dict, _ = step(state, collate_to_device(batch, device=device), None)
         loss = loss_dict["loss"].item()
@@ -2011,6 +2043,36 @@ def write_hippo_dataset(root, seed):
                             ("cbbrain_test_subjects", {})):
         with open(os.path.join(root, "attributes", f"{file_name}.json"), "w") as f:
             json.dump(data, f)
+
+
+# the cascade's first-stage predictions (phase 15), made from the targets
+PRIOR_FLIP = 0.05
+
+
+def write_priors(root, predictions, seed, flip=PRIOR_FLIP):
+    """A cascade prior for every subject of the dmri_hippo dataset at
+    ``root``: ``<predictions>/subjects/<name>/standard.nii.gz``, the
+    subject's whole_roi with a share ``flip`` of its voxels, drawn from
+    ``seed``, flipped between background and their hemisphere's label (2 in
+    the lower half of W, the right hemisphere, 1 in the upper; none within
+    a voxel of the midline), so that the prior is not the target and labels
+    each hemisphere as a first-stage prediction does."""
+    rng = np.random.default_rng(seed)
+    subjects = os.path.join(root, "subjects")
+    for name in sorted(os.listdir(subjects)):
+        path = os.path.join(subjects, name, "whole_roi.nii.gz")
+        if not os.path.exists(path):
+            continue
+        data, affine = read_nifti(path)
+        data = np.asarray(data).astype(np.int32)
+        W = data.shape[1]
+        w = np.arange(W)[None, :, None, None]
+        side = np.broadcast_to(np.where(w < W // 2, 2, 1), data.shape)
+        flipped = (rng.random(data.shape) < flip) & (np.abs(w - W // 2 + 0.5) > 1.5)
+        data[flipped] = np.where(data[flipped] > 0, 0, side[flipped])
+        folder = os.path.join(predictions, "subjects", name)
+        os.makedirs(folder, exist_ok=True)
+        write_nifti(os.path.join(folder, "standard.nii.gz"), data, affine)
 
 
 # dmri_hippo's full DWI series for the augmentation ablation's DWI modes:
@@ -2619,18 +2681,19 @@ def cli_contexts(drop_contours):
         yield
 
 
-def cli_train_checks(card, label, logs, wall, counts, iterations):
+def cli_train_checks(card, label, logs, wall, counts, iterations, convs=CONVS_PER_FORWARD,
+                     dx=DX_PER_STEP):
     """A dmri_hippo training CLI run: launches per iteration (25/23/25 at
-    the training batch) and per validation batch, the checkpoints, the
-    rates; returns the last checkpoint."""
+    the training batch for NestedResUNet; ``convs``/``dx``/``convs`` for
+    another network) and per validation batch, the checkpoints, the rates;
+    returns the last checkpoint."""
     per_iteration = {kind: sum(n for key, n in c.items() if key[1] == 2 * SUBJECTS_PER_REQUEST)
                      for kind, c in counts.items()}
-    assert per_iteration == {"fwd": CONVS_PER_FORWARD * iterations,
-                             "dx": DX_PER_STEP * iterations,
-                             "dw": CONVS_PER_FORWARD * iterations}, counts
+    assert per_iteration == {"fwd": convs * iterations, "dx": dx * iterations,
+                             "dw": convs * iterations}, counts
     # the validation sweep at iteration 0: its subjects in one batch
     validation = counts["fwd"].total() - per_iteration["fwd"]
-    assert validation == CONVS_PER_FORWARD, counts["fwd"]
+    assert validation == convs, counts["fwd"]
     [run_dir] = [os.path.join(logs, d) for d in os.listdir(logs)]
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -2638,9 +2701,12 @@ def cli_train_checks(card, label, logs, wall, counts, iterations):
     assert all(np.isfinite(r["loss"]) for r in records)
     checkpoints = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
     assert checkpoints == [f"dmri-hippo-iter{i:08}.ckpt" for i in (0, iterations)], checkpoints
-    _, text = split_text(plain_iterations(records, 0), iterations, wall)
+    timers = plain_iterations(records, 0)
+    text = split_text(timers, iterations, wall)[1] if timers else (
+        f"{iterations / wall:.3f} iterations/s over the CLI call ({iterations} iteration(s) in "
+        f"{wall:.3f} s, set-up, evaluators and saves included)")
     print(f"cli {label}: {text.replace('train() call', 'CLI call')}; launches per iteration "
-          f"forward {CONVS_PER_FORWARD}, dX {DX_PER_STEP}, dW {CONVS_PER_FORWARD} at "
+          f"forward {convs}, dX {dx}, dW {convs} at "
           f"N={2 * SUBJECTS_PER_REQUEST}, {validation} forward in the validation sweep (one "
           f"batch); checkpoints {checkpoints} [{card}]", flush=True)
     return os.path.join(run_dir, "checkpoints", checkpoints[-1])
@@ -2854,10 +2920,6 @@ def cli_raises():
     cases = (
         (lambda: cli_hippo.main(missing, missing, "r", tta_mesh=True), "item 10"),
         (lambda: cli_hippo.main(missing, missing, "r", ensemble_affines=2), "item 4"),
-        (lambda: cli_ms_inference.main([missing, missing, "o.nii.gz", "--device-postprocess"]),
-         "item 3"),
-        (lambda: cli_run_module.cascade_experiment(cli_run_module.build_parser().parse_args(
-            ["cascade_experiment", missing, missing, missing])), "item 5"),
     )
     for call, item in cases:
         try:
@@ -3289,6 +3351,409 @@ def qsm_dwi_phase(card, seed, root, tmp, drop_contours, device):
     return rows
 
 
+# Phase 15, cascade-cleanup: the dmri_hippo cascade (configs/cascade.py
+# through run.py cascade_experiment), the fused device cleanup of msseg2's
+# competition path and the trainer's device-reduced validation sweeps.
+CASCADE_ITERATIONS = 6
+CASCADE_OUT = 4  # C^2: the transition matrix of the two classes
+# the cascade's NestedResUNet: dmri_hippo's classes, the out conv 40 -> 4
+CASCADE_CONV_CLASSES = [(spatial, cin, CASCADE_OUT if cout == OUT_CHANNELS else cout, n)
+                        for spatial, cin, cout, n in CONV_CLASSES]
+CASCADE_TIMING = MS_TRAIN_TIMING
+# msseg2 subjects in model geometry for the fused cleanup: 12 patches of 96^3
+# each (2 x 3 x 2)
+FUSED_GRID = (144, 192, 144)
+FUSED_SEMI_AXES_MM = (60.0, 80.0, 75.0)
+FUSED_SUBJECTS = 2
+CLEANUP_TRIALS = 3
+# the device-reduced sweeps: validation every iteration, 0 the probe
+SWEEP_ITERATIONS = 4
+HOST_SWEEP_ITERATIONS = 2
+INSTANCE_CAPACITY = 255
+
+
+def cascade_module(root, predictions, model_type):
+    """The cascade configuration's network (on the CPU, its own init)."""
+    context = cascade_config.get_context(
+        device="cpu", variables={"DATASET_PATH": root, "PREDICTIONS_PATH": predictions},
+        model_type=model_type)
+    definition = context.get_component_definition("model")
+    return definition["constructor"](**definition["params"])
+
+
+def forward_classes(module, n, device):
+    """The conv classes of one eval forward of ``module`` at batch ``n`` of
+    the split crop: [((W, H, D), Cin, Cout, launches)]; the launches are
+    left out of the counts."""
+    module = module.to(device).eval()
+    x = torch.zeros((n, CROP[0] // 2, *CROP[1:], IN_CHANNELS), device=device)
+    with uncounted(), torch.no_grad():
+        reset_launch_counts()
+        module(x)
+        counts = Counter(conv3x3_s1p1.launches_by_shape)
+    return sorted(((W, H, D), cin, cout, m) for (_, _, W, H, D, cin, cout), m in counts.items())
+
+
+def cascade_kernel_rows(device, seed, card, classes):
+    """The forward, dX and dW at ``classes`` at the training batch: held
+    against their plain versions in both types (bit for bit on integers),
+    timed in float32, the type the cascade trains in (the kernels line's
+    rows)."""
+    batch = 2 * SUBJECTS_PER_REQUEST
+    rows = (kernel_phase(device, batch, seed, card, classes, (torch.float32,), CASCADE_TIMING)
+            + grad_kernel_phase(device, batch, seed + 1, card, classes, IN_CHANNELS,
+                                (torch.float32,), CASCADE_TIMING))
+    kernel_phase(device, batch, seed + 2, card, classes, (torch.bfloat16,), None)
+    grad_kernel_phase(device, batch, seed + 3, card, classes, IN_CHANNELS, (torch.bfloat16,),
+                      None)
+    return rows
+
+
+def cascade_cli_run(card, root, predictions, tmp, model_type, iterations, drop_contours):
+    """run.py cascade_experiment on the card: its context, logs, wall
+    seconds, launch counts and peak device memory."""
+    logs = os.path.join(tmp, f"cascade-{model_type or 'nested'}")
+    argv = ["cascade_experiment", root, predictions, logs, "--max-iterations", str(iterations),
+            "--num-workers", str(TRAINER_WORKERS)]
+    if model_type:
+        argv += ["--model-type", model_type]
+    args = cli_run_module.build_parser().parse_args(argv)
+    contexts = []
+
+    def capture(*a, original=cascade_config.get_context, **k):
+        contexts.append(original(*a, **k))
+        return contexts[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    with cli_contexts(drop_contours), patched(cascade_config, "get_context", capture):
+        _, wall, _, counts = cli_run({}, lambda: args.func(args))
+    return contexts[0], logs, wall, counts, torch.cuda.max_memory_allocated()
+
+
+def cascade_batch(context, n=SUBJECTS_PER_REQUEST):
+    """A channel-first training batch of the cascade context (its training
+    pipeline), the prior beside X and y."""
+    dataset = context.dataset.get_cohort_dataset("training")
+    subjects = [dataset[i] for i in range(n)]
+    return {key: np.stack([np.asarray(s[key].data) for s in subjects]).astype(np.float32)
+            for key in ("X", "y", "y_prior")}
+
+
+def cascade_checks(card, context, seed):
+    """On the trained cascade: every transition matrix of a served batch is
+    column-stochastic and the refined prediction a distribution; one refined
+    f32 step on the card against the CPU port; the step's profile."""
+    batch_cf = cascade_batch(context)
+    with uncounted(), torch.no_grad():
+        x = torch.from_numpy(batch_cf["X"]).cuda()
+        matrices = context.model(split_and_flip(x))
+        columns = matrices.reshape(matrices.shape[0], 2, 2, *matrices.shape[2:]).sum(1)
+        refined = apply_stochastic_matrix(
+            reverse_split_and_flip(matrices), torch.from_numpy(batch_cf["y_prior"]).cuda())
+        torch.cuda.synchronize()
+    col_err = (columns - 1).abs().max().item()
+    dist_err = (refined.sum(1) - 1).abs().max().item()
+    assert col_err <= 1e-5 and dist_err <= 1e-5, (col_err, dist_err)
+    print(f"cascade served batch: {columns.numel()} transition-matrix columns sum to 1 within "
+          f"{col_err:.3g}, refined probabilities within {dist_err:.3g} [{card}]", flush=True)
+    make_module = lambda: NestedResUNet(  # noqa: E731
+        IN_CHANNELS, CASCADE_OUT, filters=FILTERS, hypothesis_class=tsp.StochasticMatrix,
+        hypothesis_params={"channels": OUT_CHANNELS})
+    model = SegModel(make_module(), device="cpu", seed=seed)
+    model.ensure_initialized()
+    state_dict = {k: v.clone() for k, v in model.module.state_dict().items()}
+    cpu_train_comparison(
+        card, "cascade refined train f32 vs CPU port (first subject, dropout 0)", make_module,
+        lambda: SGD(lr=0.01, momentum=0.95), HybridLogisticDiceLoss(), state_dict,
+        {k: v[:1] for k, v in batch_cf.items()}, sagittal_split=True, refine_image="y_prior")
+    with uncounted():
+        model = SegModel(make_module(), device="cuda", seed=seed)
+        optimizer = SGD(lr=0.01, momentum=0.95)
+        state = create_train_state(model, optimizer, batch_cf)
+        step = make_train_step(model.module, HybridLogisticDiceLoss(), optimizer,
+                               sagittal_split=True, refine_image="y_prior")
+        batch = collate_to_device(batch_cf, device="cuda")
+        for _ in range(WARMUP_STEPS):
+            state, _, _ = step(state, batch, None)
+        profile_train_step(step, state, batch, None, "cascade f32", card)
+
+
+def cascade_part(card, seed, root, tmp, drop_contours, device):
+    """(a) The cascade: its new kernel classes, run.py cascade_experiment
+    (NestedResUNet, then one iteration of basic_unet) with launches, rates,
+    the sweep, peak memory; the checks. Returns the kernel rows."""
+    predictions = os.path.join(tmp, "cascade-predictions")
+    write_priors(root, predictions, seed + 61)
+    known = {(spatial, cin, cout) for spatial, cin, cout, _ in CONV_CLASSES}
+    nested_classes = [c for c in CASCADE_CONV_CLASSES if c[:3] not in known]
+    basic_classes = forward_classes(cascade_module(root, predictions, "basic_unet"),
+                                    2 * SUBJECTS_PER_REQUEST, device)
+    basic_new = [c for c in basic_classes if c[:3] not in known | {x[:3] for x in nested_classes}]
+    basic_convs = sum(c[3] for c in basic_classes)
+    basic_dx = sum(c[3] for c in basic_classes if c[1] != IN_CHANNELS)
+    print(f"cascade classes: NestedResUNet adds {nested_classes}; basic_unet ModularUNet(3 -> 4, "
+          f"[40, 80, 120], depth 3) runs {basic_convs} hand convs per forward at "
+          f"{len(basic_classes)} classes, {len(basic_new)} new: {basic_new}", flush=True)
+    rows = cascade_kernel_rows(device, seed + 62, card, nested_classes + basic_new)
+
+    context, logs, wall, counts, peak = cascade_cli_run(
+        card, root, predictions, tmp, None, CASCADE_ITERATIONS, drop_contours)
+    cli_train_checks(card, "run.py cascade_experiment", logs, wall, counts, CASCADE_ITERATIONS)
+    out_key = (str(torch.float32), 2 * SUBJECTS_PER_REQUEST, CROP[0] // 2, *CROP[1:])
+    assert counts["fwd"][(*out_key, FILTERS, CASCADE_OUT)] == CASCADE_ITERATIONS, counts["fwd"]
+    assert counts["dx"][(*out_key, CASCADE_OUT, FILTERS)] == CASCADE_ITERATIONS, counts["dx"]
+    assert counts["dw"][(*out_key, FILTERS, CASCADE_OUT)] == CASCADE_ITERATIONS, counts["dw"]
+    sweeps = context.trainer.sweep_times
+    print(f"cascade: the 40->4 out conv in every iteration (forward, dX and dW once each); "
+          f"validation sweeps {[(i, round(t * 1e3, 3)) for i, _, t in sweeps]} ms (iteration, "
+          f"ms; refined predictions of the validation cohorts); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    launches = {kind: Counter(c) for kind, c in counts.items()}
+    cascade_checks(card, context, seed + 63)
+
+    basic, logs, wall, basic_counts, peak = cascade_cli_run(
+        card, root, predictions, tmp, "basic_unet", 1, drop_contours)
+    cli_train_checks(card, "run.py cascade_experiment --model-type basic_unet", logs, wall,
+                     basic_counts, 1, convs=basic_convs, dx=basic_dx)
+    assert type(basic.model.module).__name__ == "ModularUNet"
+    print(f"cascade basic_unet: peak memory {peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    for kind, c in basic_counts.items():
+        launches[kind].update(c)
+    for row in rows:
+        row["launches"] = launches[row["_kind"]][row["_key"]]
+        assert row["launches"] > 0, row["name"]
+    # the out conv's forward, dX and dW run once per step
+    step_totals("per cascade train step (the 40->4 out conv's classes)",
+                [r for r in rows if CASCADE_OUT in r["_key"][5:]], lambda row: 1, card)
+    return rows
+
+
+class ServingSet:
+    """What ms_inference's inference() reads of a dataset: the transformed
+    subjects by index, the raw ones as ``subjects``."""
+
+    def __init__(self, raws, transform):
+        self.subjects, self.transform = raws, transform
+
+    def __len__(self):
+        return len(self.subjects)
+
+    def __getitem__(self, i):
+        return self.transform(copy.deepcopy(self.subjects[i]))
+
+
+def fused_serving_set(seed, folder):
+    """FUSED_SUBJECTS raw msseg2 subjects in model geometry, whose tape
+    (the FLAIRs concatenated into X) lets the cleanup run fused."""
+    rng = np.random.default_rng(seed)
+    raws = []
+    for i in range(FUSED_SUBJECTS):
+        volumes, affine = msseg2_volumes(rng, FUSED_GRID, MS_RAW_SPACING, FUSED_SEMI_AXES_MM)
+        raw = msseg2_subject(tsp, volumes, affine, f"fused-{i}")
+        raw["folder"] = os.path.join(folder, f"fused-{i}")
+        raws.append(raw)
+    transform = tsp.Compose([tsp.ConcatenateImages(image_names=list(MS_TIMEPOINTS),
+                                                   image_channels=[1, 1], new_image_name="X")])
+    return ServingSet(raws, transform)
+
+
+def median_ms(fn, trials=CLEANUP_TRIALS):
+    times = []
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def cleanup_on_host(ids):
+    """ms_inference's CLEANUP_CHAIN on the host (the port's post_processing,
+    native labeller)."""
+    out = ids.astype(np.int32)
+    for op, arg in cli_ms_inference.CLEANUP_CHAIN:
+        out, _ = cli_ms_inference.CLEANUPS[op](out, arg)
+    return out
+
+
+def cleanup_timing(card, label, ids):
+    """The fused cleanup of ``ids`` (W, H, D) on the card against the host
+    chain on the same ids: equal voxel for voxel; ms of each (medians of
+    CLEANUP_TRIALS), the CC sweeps of one device call."""
+    from segmentation_pipeline_torch.ops.morphology import (apply_device_postprocess,
+                                                            connected_components_device)
+
+    chain = cli_ms_inference.CLEANUP_CHAIN
+    ids_dev = torch.from_numpy(ids.astype(np.uint8)).cuda()
+    before = connected_components_device.sweeps
+    out = apply_device_postprocess(ids_dev, chain, 2).cpu().numpy()
+    sweeps = connected_components_device.sweeps - before
+    host = cleanup_on_host(ids)
+    assert np.array_equal(out, host), label
+    device_ms = median_ms(lambda: apply_device_postprocess(ids_dev, chain, 2))
+    host_ms = median_ms(lambda: cleanup_on_host(ids))
+    print(f"fused cleanup {label} ({'x'.join(map(str, ids.shape))}, {int(ids.sum())} foreground "
+          f"voxels, {int((host != ids).sum())} changed): equal to the host chain; device "
+          f"{device_ms:.3f} ms ({sweeps} CC sweeps per call), host {host_ms:.3f} ms [{card}]",
+          flush=True)
+
+
+def fused_cleanup_part(card, seed, ms_root, tmp):
+    """(b) ms_inference's inference() with device_postprocess on msseg2
+    subjects whose tape lets the cleanup run fused (phase 13's msseg2
+    checkpoint): the fused path taken, 34 forward launches per patch, the
+    masks equal to the host chain's on the same argmax voxel for voxel;
+    device against host cleanup ms with the CC sweeps per call; then the CLI
+    main with --device-postprocess on msseg2's dataset and the path each
+    subject took."""
+    [run_dir] = [os.path.join(tmp, "cli-msseg2", d) for d in os.listdir(
+        os.path.join(tmp, "cli-msseg2"))]
+    checkpoint = os.path.join(run_dir, "checkpoints", f"msseg2-iter{CLI_ITERATIONS:08}.ckpt")
+    model = cli_ms_inference.load_contexts(checkpoint, ms_root)[0].model
+    serving = fused_serving_set(seed, os.path.join(tmp, "fused"))
+    assert all(cli_ms_inference._fused_cleanup_is_exact(serving[i]) for i in range(len(serving)))
+    patches = len(grid_locations(FUSED_GRID, (MS_PATCH,) * 3, (MS_PATCH // 2,) * 3))
+    paths = []
+    _, wall, spent, counts = cli_run({"device": (PatchPredict, "predict")}, lambda: paths.extend(
+        cli_ms_inference.inference(serving, model, "", "fused.nii.gz", device_postprocess=True)))
+    assert [p for _, p in paths] == ["fused"] * FUSED_SUBJECTS, paths
+    forwards = MS_CONVS_PER_FORWARD * patches * FUSED_SUBJECTS
+    assert counts["fwd"].total() == forwards and not counts["dx"] and not counts["dw"], counts
+    print(f"fused cleanup: inference(device_postprocess=True) paths {paths}; {patches} patches "
+          f"of 96^3 per subject, {MS_CONVS_PER_FORWARD} forward launches each "
+          f"({forwards} in all); {wall / FUSED_SUBJECTS:.3f} s per subject of "
+          f"{'x'.join(map(str, FUSED_GRID))}, predictor with the fused cleanup "
+          f"{spent['device'] / FUSED_SUBJECTS:.3f} s [{card}]", flush=True)
+    with uncounted():
+        host_paths = cli_ms_inference.inference(serving, model, "", "host.nii.gz",
+                                                device_argmax=True)
+        assert [p for _, p in host_paths] == ["host"] * FUSED_SUBJECTS
+        for i, raw in enumerate(serving.subjects):
+            fused, _ = read_nifti(os.path.join(raw["folder"], "fused.nii.gz"))
+            host, _ = read_nifti(os.path.join(raw["folder"], "host.nii.gz"))
+            assert fused.shape == (1, *FUSED_GRID) and np.array_equal(fused, host), raw["name"]
+            [s], _ = competition_predictor(True).predict(model, [serving[i]])
+            cleanup_timing(card, f"{raw['name']} (the model's argmax)",
+                           np.argmax(np.asarray(s["y_pred"].data), axis=0))
+            # lesions and specks: the thresholded second FLAIR
+            flair = np.asarray(raw["flair_time02"].data)[0]
+            cleanup_timing(card, f"{raw['name']} (thresholded FLAIR)",
+                           (flair > np.quantile(flair, 0.97)).astype(np.uint8))
+    print(f"fused cleanup: the masks of the fused path equal the host chain's on the same "
+          f"argmax, voxel for voxel, for {FUSED_SUBJECTS} subjects [{card}]", flush=True)
+    recorded = []
+
+    def recording(*args, original=cli_ms_inference.inference, **kwargs):
+        recorded.extend(original(*args, **kwargs))
+        return recorded
+
+    with patched(cli_ms_inference, "inference", recording):
+        cli_ms_inference.main([checkpoint, ms_root, "mask.nii.gz", "--cohort", "validation",
+                               "--out-folder", os.path.join(tmp, "cli-device-postprocess"),
+                               "--device-postprocess"])
+    assert recorded, "ms_inference --device-postprocess served no subject"
+    print(f"cli ms_inference --device-postprocess on msseg2's dataset: paths {recorded} (its "
+          f"default pipeline resamples and crops, so the host cleanup) [{card}]", flush=True)
+
+
+def sweep_context(root, device_confusion):
+    """dmri_hippo's configuration with a device_argmax validation predictor
+    and a sweep every iteration that only needs counts: the Segmentation
+    and an InstanceSegmentation evaluator on cbbrain_validation."""
+    context = hippo_config.get_context(variables={"DATASET_PATH": root})
+    params = context.get_component_definition("trainer")["params"]
+    context.update_component(
+        "trainer", training_evaluators=[], device_confusion=device_confusion,
+        validation_predictor=StandardPredict(sagittal_split=True, image_names=["X"],
+                                             device_argmax=True),
+        validation_evaluators=[
+            tsp.ScheduledEvaluation(tsp.SegmentationEvaluator("y_pred_eval", "y_eval"),
+                                    "segmentation_eval", cohorts=["cbbrain_validation"]),
+            tsp.ScheduledEvaluation(tsp.InstanceSegmentationEvaluator("y_pred_eval", "y_eval"),
+                                    "instance_eval", cohorts=["cbbrain_validation"])],
+        save_rate=10 ** 6)
+    assert params["scoring_function"] is hippo_config.cbbrain_dice_score
+    context.init_components()
+    return context
+
+
+def instance_histogram_check(card, seed):
+    """overlap_histogram_device on msseg2-size lesion masks against the host
+    instance chain, exactly, and a capacity it overflows."""
+    from segmentation_pipeline_torch.evaluators import connected_components, overlap_histogram
+    from segmentation_pipeline_torch.ops.instance import (component_count,
+                                                          overlap_histogram_device)
+
+    rng = np.random.default_rng(seed)
+    volumes, _ = msseg2_volumes(rng, FUSED_GRID, MS_RAW_SPACING, FUSED_SEMI_AXES_MM)
+    target = volumes["ground_truth"][0] > 0
+    pred = (target & (rng.random(FUSED_GRID) < 0.8)) | (rng.random(FUSED_GRID) < 2e-5)
+
+    def host_chain():
+        tc, n = connected_components(target, 2)
+        pc, m = connected_components(pred, 2)
+        return overlap_histogram(tc, pc, n, m), n, m
+
+    host, N, M = host_chain()
+    t_dev, p_dev = torch.from_numpy(target).cuda(), torch.from_numpy(pred).cuda()
+    for capacity in (INSTANCE_CAPACITY, 3):
+        hist, t_uniq, p_uniq = overlap_histogram_device(t_dev, p_dev, capacity, 2)
+        (n_t, ov_t), (n_p, ov_p) = component_count(t_uniq.cpu()), component_count(p_uniq.cpu())
+        if capacity == INSTANCE_CAPACITY:
+            assert not ov_t and not ov_p and (n_t, n_p) == (N, M)
+            assert np.array_equal(hist.cpu().numpy()[:N + 1, :M + 1], host)
+        else:
+            assert ov_p and (ov_t or N <= 3), (N, M)
+    device_ms = median_ms(lambda: overlap_histogram_device(t_dev, p_dev, INSTANCE_CAPACITY, 2))
+    host_ms = median_ms(host_chain)
+    print(f"instance histogram on {'x'.join(map(str, FUSED_GRID))} lesion masks ({N} target, "
+          f"{M} predicted components): equal to the host chain entry for entry; capacity 3 "
+          f"flags its overflow; device {device_ms:.3f} ms, host {host_ms:.3f} ms [{card}]",
+          flush=True)
+
+
+def sweep_part(card, seed, root):
+    """(c) The dmri_hippo trainer with a device_argmax validation predictor:
+    the manager from probe to on (the probe holds the device counts to the
+    host chain's exactly), each sweep's ms by state beside a host-path run's,
+    the bytes fetched per subject; the instance histogram check."""
+    times = {}
+    for device_confusion, iterations in ((None, SWEEP_ITERATIONS),
+                                         (False, HOST_SWEEP_ITERATIONS)):
+        context = sweep_context(root, device_confusion)
+        context.trainer.train(context, max_iterations=iterations, num_workers=TRAINER_WORKERS,
+                              validation_batch_size=VALIDATION_BATCH, logger=MemoryLogger())
+        for _, state, seconds in context.trainer.sweep_times:
+            times.setdefault(state, []).append(round(seconds * 1e3, 3))
+        if device_confusion is None:
+            mgr = context.trainer._confusion_mgr
+            assert mgr.state == "on" and mgr._validated == {"confusion", ("instance", 2)}
+            per_subject = mgr.bytes_fetched / mgr.subjects_delivered
+    assert len(times["probe"]) == 1 and len(times["on"]) == SWEEP_ITERATIONS - 1
+    print(f"device sweeps (dmri_hippo, {HIPPO_SUBJECTS['validation']} cbbrain_validation "
+          f"subjects, Segmentation + InstanceSegmentation evaluators): manager probe -> on; "
+          f"sweep ms probe {times['probe']}, on {times['on']}, host path {times['host']}; "
+          f"{per_subject:.0f} bytes fetched per subject in the device reductions [{card}]",
+          flush=True)
+    instance_histogram_check(card, seed)
+
+
+def cascade_cleanup_phase(card, seed, root, ms_root, tmp, drop_contours, device):
+    """Phase 15: the cascade, the fused cleanup and the device sweep
+    reductions. Returns the new kernel rows with their launches."""
+    t0 = time.perf_counter()
+    rows = cascade_part(card, seed, root, tmp, drop_contours, device)
+    t1 = time.perf_counter()
+    fused_cleanup_part(card, seed + 64, ms_root, tmp)
+    t2 = time.perf_counter()
+    sweep_part(card, seed + 65, root)
+    print(f"cascade-cleanup phase: {time.perf_counter() - t0:.1f} s (cascade {t1 - t0:.1f}, "
+          f"fused cleanup {t2 - t1:.1f}, sweeps {time.perf_counter() - t2:.1f}) [{card}]",
+          flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3311,6 +3776,11 @@ def main() -> int:
     for source in conv3x3.SOURCES:
         print(f"{source}:\n" + build.build_logs.get(source, "(library was already built)").strip(),
               flush=True)
+    t0 = time.perf_counter()
+    native.library()
+    print(f"build: g++ {native.SOURCE} {time.perf_counter() - t0:.1f} s "
+          f"{build.build_logs.get(native.SOURCE, '(library was already built)').strip()}",
+          flush=True)
 
     device, half_batch = torch.device("cuda"), 2 * SUBJECTS_PER_REQUEST
     rows = kernel_phase(device, half_batch, args.seed, card)
@@ -3364,11 +3834,14 @@ def main() -> int:
             cli_phase(card, args.seed, root, ms_root, tmp, drop_contours is not None)
             qsm_rows = qsm_dwi_phase(card, args.seed, root, tmp, drop_contours is not None,
                                      device)
+            cascade_rows = cascade_cleanup_phase(card, args.seed, root, ms_root, tmp,
+                                                 drop_contours is not None, device)
     finally:
         shutil.rmtree(ms_root)
 
     rows = [{key: value for key, value in row.items() if not key.startswith("_")}
-            for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows]
+            for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows
+            + cascade_rows]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,11 @@ around it: SubjectFolder with its loaders and cohort filters, the Context
 and its checkpoints, SegmentationTrainer with scheduled evaluators, and
 FileLogger; and the trainer's device levers (the device cache, device patch
 sampling and the batched device augmentation derived from the declared
-pipeline: ``tpu_fast_path=True``). The configurations of dmri_hippo and msseg2 live in
+pipeline: ``tpu_fast_path=True``); the dmri_hippo cascade (StochasticMatrix,
+refined predictions); the native connected-component labeller (native.py)
+and the device morphology, instance and confusion reductions (fused
+cleanup in PatchPredict, the trainer's device-reduced sweeps). The
+configurations of dmri_hippo and msseg2 live in
 ``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
 and weight gradients run on hand-written CUDA kernels
 (csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
@@ -29,11 +33,12 @@ from .data import (AnyFilter, AttributeLoader, ComposeFilters, ComposeLoaders, F
                    RandomFoldFilter, RandomSampler, RandomSelectFilter, RequireAttributes,
                    SequentialSampler, StandardDataLoader, StratifiedFilter, SubjectFolder,
                    TensorLoader, UniformSampler, WeightedSampler)
-from .evaluators import (ContourImageEvaluator, LabeledTensor, LabelMapEvaluator,
+from .evaluators import (ContourImageEvaluator, ImageRegionEvaluator,
+                         InstanceSegmentationEvaluator, LabeledTensor, LabelMapEvaluator,
                          SegmentationEvaluator)
 from .loggers import FileLogger, NonLogger
 from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, NestedResUNet,
-                     WSConv3d, flax_to_state_dict, state_dict_to_flax)
+                     StochasticMatrix, WSConv3d, flax_to_state_dict, state_dict_to_flax)
 from .models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientations
 from .post_processing import (keep_components, remove_holes, remove_small_components,
                               sort_by_size, unsort_by_size)

@@ -18,6 +18,12 @@ import numpy as np
 from .evaluator import Evaluator
 from .labeled_tensor import LabeledTensor
 
+#: subject attribute carrying joint histograms computed on the device
+#: ({(pred_name, target_name): {"joint": (L+1, L+1), "label_values": {...}}}),
+#: written by training/device_confusion.py once its probe sweep has held
+#: the device reduction to this module's host counts, exactly
+DEVICE_CONFUSION_KEY = "_device_confusion"
+
 STATS = ("target_volume", "prediction_volume", "TP", "FP", "TN", "FN",
          "dice", "jaccard", "precision", "recall")
 
@@ -122,6 +128,12 @@ class SegmentationEvaluator(Evaluator):
         self.stats_to_output = stats_to_output
         self.summary_stats_to_output = summary_stats_to_output
 
+    def _device_entry(self, subject):
+        entries = subject.get(DEVICE_CONFUSION_KEY)
+        if isinstance(entries, dict):
+            return entries.get((self.prediction_label_map_name, self.target_label_map_name))
+        return None
+
     def __call__(self, subjects):
         if not subjects:
             # an empty cohort still produces a result: the trainer always
@@ -134,7 +146,12 @@ class SegmentationEvaluator(Evaluator):
                 "summary_stats": empty.compute_summary_stats(
                     self.summary_stats_to_output),
             }
-        label_values = subjects[0][self.prediction_label_map_name]["label_values"]
+        entry0 = self._device_entry(subjects[0])
+        if entry0 is not None:
+            # a sweep reduced on the device attaches no eval images
+            label_values = entry0["label_values"]
+        else:
+            label_values = subjects[0][self.prediction_label_map_name]["label_values"]
         label_names = list(label_values.keys())
         subject_names = [s["name"] for s in subjects]
 
@@ -143,9 +160,14 @@ class SegmentationEvaluator(Evaluator):
             dim_keys=[subject_names, label_names, list(self.stats_to_output)])
 
         for subject in subjects:
-            pred = np.asarray(subject[self.prediction_label_map_name].data)
-            target = np.asarray(subject[self.target_label_map_name].data)
-            stats = confusion_stats(pred, target, label_values)
+            entry = self._device_entry(subject)
+            if entry is not None:
+                # counted on the device (training/device_confusion.py)
+                stats = stats_from_joint(entry["joint"], label_names)
+            else:
+                pred = np.asarray(subject[self.prediction_label_map_name].data)
+                target = np.asarray(subject[self.target_label_map_name].data)
+                stats = confusion_stats(pred, target, label_values)
             for label_name in label_names:
                 for stat_name in self.stats_to_output:
                     subject_stats[subject["name"], label_name, stat_name] = \

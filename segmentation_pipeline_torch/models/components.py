@@ -1,7 +1,8 @@
 """Model building blocks over channels-last (N, W, H, D, C) tensors.
 
 Ported from segmentation_pipeline_tpu/models/components.py (Conv3d, WSConv3d,
-BlurConv3d, BlurConvTranspose3d, Block3d, AvgPoolDown, TrilinearUp, Softmax)
+BlurConv3d, BlurConvTranspose3d, Block3d, AvgPoolDown, TrilinearUp, Softmax,
+StochasticMatrix)
 and flax's BatchNorm as Block3d uses it. Submodule names follow the flax tree
 (``Conv3d_0``, ``BatchNorm_0``, ``res_conv``) and every conv weight is
 torch's (Cout, Cin, kw, kh, kd), so that models/convert.py maps weights by
@@ -312,3 +313,28 @@ class Softmax(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.softmax(x, dim=-1)
+
+
+class StochasticMatrix(nn.Module):
+    """The cascade head: (..., C^2) -> the per-voxel C x C transition matrix
+    (row-major), with ``diag_bias`` added to its diagonal when given and a
+    softmax over its rows (each column sums to 1), flattened back. No
+    parameters."""
+
+    def __init__(self, channels: int, diag_bias: Optional[float] = None):
+        super().__init__()
+        self.channels = channels
+        self.diag_bias = diag_bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        C = self.channels
+        if x.shape[-1] != C * C:
+            raise RuntimeError(
+                "Expected final dim of input tensor to be the square of the number "
+                "of out channels")
+        shape = x.shape
+        x = x.reshape(*shape[:-1], C, C)  # (..., row, col)
+        if self.diag_bias is not None:
+            x = x + torch.eye(C, dtype=x.dtype, device=x.device) * self.diag_bias
+        x = torch.softmax(x, dim=-2)
+        return x.reshape(shape)

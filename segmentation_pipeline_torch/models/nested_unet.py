@@ -6,11 +6,13 @@ order, which the 2f- and 3f-channel block weights depend on. Spatial dims
 must be divisible by 8 (three pooling levels). ``remat=True`` rematerializes
 the blocks in a train-mode forward under autograd, as the JAX package's
 ``nn.remat(Block3d)`` (``modular_unet.rematerialized``); ``use_norm=False``
-leaves BatchNorm out of every block.
+leaves BatchNorm out of every block. ``hypothesis_class`` (built with
+``hypothesis_params``) is the head after the out conv: the channel softmax
+by default, ``StochasticMatrix`` for the cascade.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -29,12 +31,14 @@ _BLOCKS = (
 
 
 class NestedResUNet(nn.Module):
-    """x: (N, W, H, D, input_channels) -> channel softmax
+    """x: (N, W, H, D, input_channels) -> the head on the out conv's
     (N, W, H, D, output_channels). In train mode every block draws its
     channel dropout from the generator given to ``forward``."""
 
     def __init__(self, input_channels: int, output_channels: int, filters: int = 40,
-                 dropout_p: float = 0.0, remat: bool = False, use_norm: bool = True):
+                 dropout_p: float = 0.0, hypothesis_class: Any = Softmax,
+                 hypothesis_params: Optional[Dict] = None, remat: bool = False,
+                 use_norm: bool = True):
         super().__init__()
         f = filters
         self.remat = remat
@@ -43,7 +47,7 @@ class NestedResUNet(nn.Module):
             self.add_module(name, Block3d(cin, f, residual=residual, dropout_p=dropout_p,
                                           use_norm=use_norm))
         self.out_conv = Conv3d(f, output_channels, kernel_size=3, padding=1)
-        self.hypothesis = Softmax()
+        self.hypothesis = hypothesis_class(**(hypothesis_params or {}))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native code at first use and load it with ctypes.
 
-Each source in ``segmentation_pipeline_torch/csrc`` is compiled by ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface. Libraries go
-under ``build/torch_kernels/`` at the root of the checkout (git-ignored),
-named by a hash of their source, so an edited source rebuilds and an unchanged
-one is reused. Nothing here runs on import.
+Each CUDA source in ``segmentation_pipeline_torch/csrc`` is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface; the
+host C++ source (``ccl.cpp``, the connected-component labeller) by ``g++``
+(``load_host``). Libraries go under ``build/torch_kernels/`` at the root of
+the checkout (git-ignored), named by a hash of their source and flags, so an
+edited source rebuilds and an unchanged one is reused. Each is written to a
+temporary file and moved into place with ``os.replace``, so processes that
+build at once never load a half-written library. Nothing here runs on
+import.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
@@ -35,8 +40,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+def _library_path(source: str, flags=NVCC_FLAGS) -> Path:
+    text = (CSRC / source).read_bytes() + " ".join(flags).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -75,4 +80,35 @@ def load(source: str) -> ctypes.CDLL:
         build([source])
         lib = ctypes.CDLL(str(_library_path(source)))
         _libraries[source] = lib
+    return lib
+
+
+def _cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (g++) found: the native labeller cannot be built")
+
+
+def load_host(source: str) -> ctypes.CDLL:
+    """The loaded host library of the C++ ``source``, built by g++ first if
+    needed. A failed build raises with the compiler's output."""
+    lib = _libraries.get(source)
+    if lib is not None:
+        return lib
+    target = _library_path(source, CXX_FLAGS)
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(CSRC / source)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build_logs[source] = proc.stdout
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed for {source}:\n{proc.stdout}")
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    _libraries[source] = lib
     return lib

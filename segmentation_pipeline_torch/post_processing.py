@@ -4,39 +4,36 @@ while iteratively dilating survivors into removed voxels (so no holes
 appear), fill small holes with dilation-based label assignment, and remove
 small components by inverting.
 
-Host-side scipy.ndimage: component labelling with full 26-connectivity
-(skimage.morphology.label's default) and grey dilation with the cross
-footprint (skimage.morphology.dilation's default). These are exactly the
-outputs of the JAX package's functions, with or without its native library;
-outputs are the contract.
+Host-side, on the port's native labeller (native.py, csrc/ccl.cpp), as the
+JAX package runs on its own: component labelling with full 26-connectivity
+(skimage.morphology.label's default), holes at connectivity 1, and grey
+dilation with the cross footprint (skimage.morphology.dilation's default).
+The labels are scipy.ndimage's, so the outputs are those of the JAX
+package's functions; outputs are the contract.
 """
 from __future__ import annotations
 
 import numpy as np
-from scipy import ndimage as ndi
 
-_LABEL_STRUCTURE = ndi.generate_binary_structure(3, 3)  # 26-neighbourhood
-_DILATE_FOOTPRINT = ndi.generate_binary_structure(3, 1)  # 6-neighbourhood cross
+from .native import connected_components_native, grey_dilation_native
 
 
 def _label(img: np.ndarray) -> np.ndarray:
     """Foreground components numbered 1..K in raster order of their first
     voxel."""
-    labels, _ = ndi.label(np.ascontiguousarray(img) > 0, structure=_LABEL_STRUCTURE)
-    return labels.astype(np.int32)
+    labels, _ = connected_components_native(img > 0, connectivity=3)
+    return labels
 
 
 def _dilate_labels(img: np.ndarray) -> np.ndarray:
     """Grey dilation with the cross footprint, computed in int32."""
-    src = np.ascontiguousarray(img, dtype=np.int32)
-    return ndi.grey_dilation(src, footprint=_DILATE_FOOTPRINT).astype(img.dtype)
+    return grey_dilation_native(img)
 
 
 def _remove_small_holes(mask: np.ndarray, hole_size: int) -> np.ndarray:
     """skimage.remove_small_holes semantics: fill background components of
     at most ``hole_size`` voxels (connectivity 1)."""
-    inverted = ~mask
-    labels, num = ndi.label(inverted, structure=_DILATE_FOOTPRINT)
+    labels, num = connected_components_native(~mask, connectivity=1)
     if num == 0:
         return mask.copy()
     counts = np.bincount(labels.ravel())

@@ -5,6 +5,9 @@ trick), ``PatchPredict`` (sliding-window patches, ops/sliding_window.py) and
 
 The prediction stays on the device through the model; with ``device_argmax``
 only the label ids come back to the host, bit-packed (ops/bitpack.py).
+PatchPredict's ``device_postprocess`` runs a cleanup chain on those ids on
+the device first (ops/morphology.py), and a trainer's device-confusion plan
+(training/device_confusion.py) reduces them to counts there.
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ import torch
 
 from .core.subject import LabelMap, Subject, collate_subjects
 from .device import resolve_device
-from .ops.bitpack import argmax_ids, fetch_ids, start_fetch
+from .ops.bitpack import argmax_ids, fetch_ids, idx_dtype_for, start_fetch
 from .ops.sliding_window import sliding_window_inference
-from .training.model import SegModel
+from .training.model import SegModel, to_channels_first, to_channels_last
+from .training.train_step import apply_stochastic_matrix_cl
 from .transforms.base import LabelTransform, apply_inverse_on_new_subject
 from .transforms.spatial import EnforceConsistentAffine
 from .transforms.structural import ConcatenateImages, CopyProperty, RenameProperty
@@ -37,6 +41,16 @@ def reverse_split_and_flip(x: torch.Tensor) -> torch.Tensor:
     half = x.shape[0] // 2
     first, second = x[:half], x[half:]
     return torch.cat([first, torch.flip(second, dims=(2,))], dim=2)
+
+
+def apply_stochastic_matrix(y_pred: torch.Tensor, y_prior: torch.Tensor) -> torch.Tensor:
+    """The cascade's refinement, channel-first: y_pred (N, C^2, W, H, D) holds
+    each voxel's column-stochastic C x C matrix M (row-major), y_prior
+    (N, C, W, H, D) the prior; refined[row] = sum_col M[row, col] *
+    prior[col], the JAX package's Markov update of the prior
+    (training/train_step.py's channels-last contraction)."""
+    return to_channels_first(apply_stochastic_matrix_cl(to_channels_last(y_pred),
+                                                        to_channels_last(y_prior)))
 
 
 class Predictor(ABC):
@@ -128,15 +142,40 @@ def _attach_prediction(subject: Subject, y_pred: np.ndarray, label_attributes):
     return subject
 
 
+def _deliver_deferred(plan, joint_pairs, deferred, preds, n_ch, label_attributes):
+    """Fetch the device counts of a sweep in one transfer (``plan.deliver``);
+    a subject whose counts could not be delivered (an instance reduction
+    past its component budget) has its prediction fetched after all."""
+    delivered = {id(s) for s in plan.deliver(joint_pairs)}
+    for slot, subject, ids_dev in deferred:
+        if id(subject) in delivered:
+            continue
+        y_np = ids_to_onehot(fetch_ids(ids_dev, n_ch), n_ch)
+        preds[slot] = y_np
+        _attach_prediction(subject, y_np, label_attributes)
+
+
 class StandardPredict(Predictor):
     """Whole-image batched prediction on ``device`` (the card unless the
-    caller passes ``device="cpu"``)."""
+    caller passes ``device="cpu"``).
+
+    With ``refine_image`` (the cascade) the model's C^2 channels are each
+    voxel's transition matrix, contracted with that image of the batch (the
+    prior) by ``apply_stochastic_matrix``; the image joins ``image_names``."""
+
+    # a trainer's device-confusion plan for one sweep
+    # (training/device_confusion.py)
+    _confusion_plan = None
 
     def __init__(self, image_names: Sequence[str] = ("X",), sagittal_split: bool = False,
-                 device_argmax: bool = False, cache_inputs: Optional[bool] = None,
-                 device=None):
-        self.image_names = list(image_names)
+                 refine_image: str = None, device_argmax: bool = False,
+                 cache_inputs: Optional[bool] = None, device=None):
+        image_names = list(image_names)
+        if refine_image is not None and refine_image not in image_names:
+            image_names.append(refine_image)
+        self.image_names = image_names
         self.sagittal_split = sagittal_split
+        self.refine_image = refine_image
         # fetch argmax label ids instead of the C-channel float32 volume and
         # attach the one-hot expansion
         self.device_argmax = device_argmax
@@ -154,12 +193,27 @@ class StandardPredict(Predictor):
             y_pred = reverse_split_and_flip(model(split_and_flip(batch["X"])))
         else:
             y_pred = model(batch["X"])
+        if self.refine_image is not None:
+            y_pred = apply_stochastic_matrix(y_pred, batch[self.refine_image])
 
         batch["y_pred"] = y_pred
         n_ch = y_pred.shape[1]
         if self.device_argmax and n_ch > 1:
-            y_np = ids_to_onehot(fetch_ids(argmax_ids(y_pred, 1), n_ch), n_ch,
-                                 channel_axis=1)
+            ids_dev = argmax_ids(y_pred, 1)
+            plan = self._confusion_plan
+            if plan is not None:
+                # the sweep's counts on the device
+                joint_pairs = []
+                for i, subject in enumerate(subjects):
+                    res = plan.device_joint(subject, ids_dev[i], n_ch)
+                    if res is not None:
+                        joint_pairs.append((subject, res))
+                delivered = plan.deliver(joint_pairs) if joint_pairs else []
+                if plan.skip_fetch and len(delivered) == len(subjects):
+                    # a validated reduction-only sweep: only counts crossed
+                    # the link, no prediction is attached
+                    return list(subjects), batch
+            y_np = ids_to_onehot(fetch_ids(ids_dev, n_ch), n_ch, channel_axis=1)
         else:
             # C == 1: the single channel IS the mask/probability — argmax
             # would collapse it to all-zero ids; fall back to the full fetch
@@ -185,14 +239,22 @@ class PatchPredict(Predictor):
     device work: subject i+1's window is queued before it. ``batch["y_pred"]``
     is host numpy, a list for a ragged cohort.
 
+    ``device_postprocess`` ([(op, arg), ...]; needs ``device_argmax`` and
+    more than one channel) runs that cleanup chain on each subject's ids on
+    the device before the fetch (ops/morphology.py::apply_device_postprocess:
+    'remove_holes', 'keep_components', 'remove_small_components', exactly
+    the host functions' labels). It cleans in model space, before the
+    inversion of the tape; pipelines that clean after it keep the host
+    functions.
+
     A SegModel runs its module on channels-last patches in its
     ``compute_dtype``; any other callable (an ensemble) gets channel-first
     patches. Out of device memory, the patch batch halves and stays halved
     for later subjects and calls.
     """
 
-    # set by the JAX trainer's device-confusion sweep; the port's trainer
-    # raises on such a sweep (training/trainer.py)
+    # a trainer's device-confusion plan for one sweep
+    # (training/device_confusion.py); never pickled
     _confusion_plan = None
 
     def __init__(self, image_names: Sequence[str] = ("X",), patch_batch_size: int = 16,
@@ -218,6 +280,19 @@ class PatchPredict(Predictor):
         self.cache_inputs = cache_inputs
         self.device_postprocess = list(device_postprocess) if device_postprocess else None
         self.device = resolve_device(device)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_confusion_plan", None)
+        return state
+
+    def __setstate__(self, state):
+        # attributes newer than a pickled checkpoint
+        state.setdefault("device_postprocess", None)
+        state.setdefault("cache_inputs", None)
+        state.setdefault("device_argmax", False)
+        state.setdefault("shape_bucket", 0)
+        self.__dict__.update(state)
 
     def _pad_volume(self, volume: np.ndarray, pad) -> np.ndarray:
         if self.padding_mode in (None, 0):
@@ -269,21 +344,17 @@ class PatchPredict(Predictor):
                 print(f"PatchPredict: out of device memory; retrying with "
                       f"patch_batch_size={batch_size}", flush=True)
 
+    def _postprocess_error(self, n_ch):
+        # the caller asked for the fused cleanup and may have skipped the
+        # host one: demoting it would ship an uncleaned segmentation
+        return ValueError(
+            "device_postprocess requires device_argmax with a multi-channel model (the fused "
+            f"cleanup runs on argmax ids); got device_argmax={self.device_argmax}, "
+            f"out_channels={n_ch}. Use the host post_processing functions instead.")
+
     def predict(self, model, subjects, label_attributes=None):
-        if self._confusion_plan is not None:
-            raise NotImplementedError(
-                "PatchPredict's device-confusion sweep waits for the port of ROADMAP "
-                "Queue 1 item 3 (native labeller, device post-processing and device "
-                "confusion)")
-        if self.device_postprocess and subjects:
-            if not self.device_argmax:
-                raise ValueError(
-                    "device_postprocess requires device_argmax with a multi-channel model "
-                    "(the fused cleanup runs on argmax ids); got device_argmax=False. Use "
-                    "the host post_processing functions instead.")
-            raise NotImplementedError(
-                "PatchPredict(device_postprocess=...) waits for the device morphology "
-                "(ROADMAP, Queue 1: native labeller and device post-processing)")
+        if self.device_postprocess and subjects and not self.device_argmax:
+            raise self._postprocess_error(None)
         patch_size = self.patch_size
         if patch_size is None:
             raise ValueError("PatchPredict needs a patch_size")
@@ -292,6 +363,11 @@ class PatchPredict(Predictor):
         model_fn, dtype = self._model_fn(model)
 
         out_subjects, preds = [], []
+        plan = self._confusion_plan if self.device_argmax else None
+        # the sweep's device counts, and the subjects whose fetch waits on
+        # their delivery
+        joint_pairs, deferred = [], []
+        n_ch = None
 
         def finalize(subject, spatial, padded, n_ch, finish):
             y_np = finish()
@@ -327,17 +403,49 @@ class PatchPredict(Predictor):
             del volume
             # with one channel, the channel is the mask: an argmax would be 0
             n_ch = y.shape[0] if self.device_argmax and y.shape[0] > 1 else None
-            finish = start_fetch(argmax_ids(y, 0) if n_ch else y, n_ch)
+            if self.device_postprocess and n_ch is None:
+                raise self._postprocess_error(y.shape[0])
+            if n_ch is None:
+                finish = start_fetch(y, None)
+            else:
+                ids = argmax_ids(y, 0)
+                if padded and (self.device_postprocess or plan is not None):
+                    ids = ids[:spatial[0], :spatial[1], :spatial[2]]
+                    padded = False
+                if self.device_postprocess:
+                    # the cleanup on the device: the fetch ships the cleaned ids
+                    from .ops.morphology import apply_device_postprocess
+
+                    ids = apply_device_postprocess(ids, self.device_postprocess, n_ch).to(
+                        idx_dtype_for(n_ch))
+                res = plan.device_joint(subject, ids, n_ch) if plan is not None else None
+                if res is not None:
+                    joint_pairs.append((subject, res))
+                if res is not None and plan.skip_fetch:
+                    # a validated reduction-only sweep: no fetch, nothing
+                    # attached, unless delivery fails (then fetched late)
+                    del y
+                    if pending is not None:
+                        finalize(*pending)
+                        pending = None
+                    deferred.append((len(preds), subject, ids))
+                    out_subjects.append(subject)
+                    preds.append(None)
+                    continue
+                finish = start_fetch(ids, n_ch)
             del y
             if pending is not None:
                 finalize(*pending)
             pending = (subject, spatial, padded, n_ch, finish)
         if pending is not None:
             finalize(*pending)
+        if joint_pairs:
+            _deliver_deferred(plan, joint_pairs, deferred, preds, n_ch, label_attributes)
 
         batch = _LazyBatch(subjects, self.image_names, cache=bool(self.cache_inputs),
                            device=self.device)
-        if not preds:
+        if not preds or any(p is None for p in preds):
+            # no subject, or a reduction-only sweep: no volumes
             batch["y_pred"] = None
         elif len({p.shape for p in preds}) == 1:
             batch["y_pred"] = np.stack(preds)

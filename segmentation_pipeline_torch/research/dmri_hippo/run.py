@@ -8,18 +8,16 @@ and one more, ``--device`` (the card unless it says ``cpu``):
         <dataset> <logs> --augmentation-mode standard --fold 1
     python -m segmentation_pipeline_torch.research.dmri_hippo.run augmentation_experiment_grid \
         <dataset> <logs> --task-id 7
-
-``cascade_experiment`` raises before any work, naming the ROADMAP item that
-brings it.
+    python -m segmentation_pipeline_torch.research.dmri_hippo.run cascade_experiment \
+        <dataset> <predictions> <logs> [--model-type basic_unet]
 """
 import argparse
 from itertools import product
 
 from segmentation_pipeline_torch.loggers import FileLogger
-from segmentation_pipeline_torch.training.trainer import _not_ported
 from segmentation_pipeline_torch.utils.dataset_files import prepare_dataset_files
 
-from .configs import augmentation, main_config
+from .configs import augmentation, cascade, main_config
 
 
 def _compute_dtype(args):
@@ -101,7 +99,16 @@ def augmentation_experiment_grid(args):
 
 
 def cascade_experiment(args):
-    raise _not_ported("cascade_experiment (configs/cascade.py)", "item 5 (cascade)")
+    dataset_path = prepare_dataset_files(args.dataset_path, args.work_path)
+    predictions_path = prepare_dataset_files(args.predictions_path, args.work_path)
+    context = cascade.get_context(
+        device=getattr(args, "device", None),
+        variables={"DATASET_PATH": str(dataset_path),
+                   "PREDICTIONS_PATH": str(predictions_path)},
+        prior_label_name=args.prior_label_name, fold=args.fold,
+        predict_hbt=args.predict_hbt, model_type=args.model_type)
+    _train(context, args.logging_path, args.max_training_time, args.num_workers,
+           preload=True, max_iterations=args.max_iterations)
 
 
 def build_parser():

@@ -8,10 +8,14 @@ arguments, defaults and file names. It runs on the card unless
 ``--device cpu`` (``device="cpu"``) asks for the CPU.
 
     python -m segmentation_pipeline_torch.research.msseg2.competition.ms_inference \
-        <ensemble> <dataset> out.nii.gz [--device-argmax] [--bf16] [--device cpu]
+        <ensemble> <dataset> out.nii.gz [--device-argmax] [--device-postprocess] [--bf16] \
+        [--device cpu]
 
-``--device-postprocess`` (the cleanup fused on the device) raises before
-any model is loaded, naming the ROADMAP item that brings it.
+With ``--device-postprocess`` the cleanup runs fused on the device, in
+model space before the ids fetch (PatchPredict's ``device_postprocess``),
+for each subject whose tape makes that order give the same voxels
+(``_fused_cleanup_is_exact``); the others take the host cleanup after the
+inversion, as without the flag.
 """
 import argparse
 from pathlib import Path
@@ -23,7 +27,6 @@ from ....models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientati
 from ....post_processing import remove_holes, remove_small_components
 from ....prediction import PatchPredict
 from ....training.context import Context, list_checkpoint_files
-from ....training.trainer import _not_ported
 from ....transforms.base import IntensityTransform, invert_records
 from ....transforms.label import CustomOneHot
 from ....transforms.spatial import resample_array
@@ -54,26 +57,30 @@ def _fused_cleanup_is_exact(subject) -> bool:
     return True
 
 
-def competition_predictor(device_argmax=False, device=None):
+def competition_predictor(device_argmax=False, device=None, device_postprocess=None):
     """The competition's predictor: 96^3 patches one at a time, an overlap
-    of 48, edge padding, averaged overlaps."""
+    of 48, edge padding, averaged overlaps; with ``device_postprocess`` (a
+    cleanup chain) the fused predictor, which argmaxes and cleans on the
+    device."""
     return PatchPredict(patch_batch_size=1, patch_size=PATCH_SIZE, patch_overlap=PATCH_SIZE // 2,
                         padding_mode="edge", overlap_mode="average", image_names=["X"],
-                        device_argmax=device_argmax, device=device)
+                        device_argmax=device_argmax or bool(device_postprocess),
+                        device_postprocess=device_postprocess, device=device)
 
 
-def ms_to_raw_grid(subject, raw_subject):
+def ms_to_raw_grid(subject, raw_subject, cleanup=True):
     """The steps after the prediction: invert the tape on y_pred, argmax,
-    run CLEANUP_CHAIN, resample (order 0) onto the raw first image's grid,
+    run CLEANUP_CHAIN (unless ``cleanup`` is False: the predictor cleaned
+    on the device), resample (order 0) onto the raw first image's grid,
     int32. Returns the label map on the raw grid and the voxels each
-    cleanup removed."""
+    cleanup removed (empty without the host cleanup)."""
     pred_subject = Subject({"y": subject["y_pred"]})
     pred_subject = invert_records(pred_subject, subject.get_composed_history(), warn=False)
     output_label = pred_subject.get_first_image()
     data = np.asarray(output_label.data)
     label_data = (np.argmax(data, axis=0) if data.shape[0] > 1 else data[0]).astype(np.int32)
     report = []
-    for op, arg in CLEANUP_CHAIN:
+    for op, arg in CLEANUP_CHAIN if cleanup else ():
         label_data, removed = CLEANUPS[op](label_data, arg)
         report.append(removed)
     output_label.set_data(label_data[None].astype(np.int32))
@@ -91,21 +98,20 @@ def ms_to_raw_grid(subject, raw_subject):
 
 def ms_inference(subject, raw_subject, model, predictor):
     """Predict one transformed subject, then bring its mask back to the raw
-    grid (``ms_to_raw_grid``)."""
+    grid (``ms_to_raw_grid``; the host cleanup only where the predictor did
+    not clean on the device)."""
     [subject], _ = predictor.predict(model, [subject])
-    return ms_to_raw_grid(subject, raw_subject)
-
-
-def _device_postprocess_not_ported():
-    return _not_ported("--device-postprocess (the cleanup fused on the device)",
-                       "item 3 (native labeller and device post-processing)")
+    return ms_to_raw_grid(subject, raw_subject, cleanup=not predictor.device_postprocess)
 
 
 def inference(dataset, model, out_folder, output_filename,
               device_argmax=False, device_postprocess=False, device=None):
-    if device_postprocess:
-        raise _device_postprocess_not_ported()
+    """Serve every subject of ``dataset`` into its NIfTI. Returns
+    [(subject name, "fused" or "host"), ...]: where each one's cleanup ran."""
     predictor = competition_predictor(device_argmax, device)
+    # the host chain and the fused one come from the same CLEANUP_CHAIN
+    fused_predictor = competition_predictor(True, device, device_postprocess=CLEANUP_CHAIN)
+    paths = []
 
     for i in range(len(dataset)):
         subject = dataset[i]
@@ -116,13 +122,25 @@ def inference(dataset, model, out_folder, output_filename,
             Path(out_folder) / subject["name"]
         folder.mkdir(exist_ok=True, parents=True)
 
-        output_label, report = ms_inference(subject, untransformed_subject, model, predictor)
+        # the fused path only where it gives the voxels of the cleanup after
+        # the inversion
+        fused = bool(device_postprocess) and _fused_cleanup_is_exact(subject)
+        if device_postprocess and not fused:
+            print("device-postprocess: history has a spatial/label inverse; "
+                  "falling back to the host cleanup for exact parity")
+        output_label, report = ms_inference(subject, untransformed_subject, model,
+                                            fused_predictor if fused else predictor)
+        if fused:
+            print("Cleanup ran fused on device (holes filled + small "
+                  "components removed before the ids fetch).")
         for (op, arg), removed in zip(CLEANUP_CHAIN, report):
             if op == "remove_holes":
                 print(f"Filled {removed} voxels from detected holes.")
             else:
                 print(f"Removed {removed} voxels from small predictions less than size {arg}.")
         output_label.save(folder / output_filename)
+        paths.append((subject["name"], "fused" if fused else "host"))
+    return paths
 
 
 def load_contexts(ensemble_path, dataset_path, ensemble_orientations="", ensemble_folds=False,
@@ -160,7 +178,9 @@ def build_parser():
                         help="argmax on the device and fetch the label ids instead of the "
                              "float32 probability volume (the same mask)")
     parser.add_argument("--device-postprocess", action="store_true",
-                        help="the cleanup fused on the device (not ported yet)")
+                        help="run the hole-fill + small-component cleanup fused on the device "
+                             "before the ids fetch (implies --device-argmax; a subject whose "
+                             "history makes the fused order inexact takes the host cleanup)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 forward (float32 weights); omit for float32")
     parser.add_argument("--device", default=None,
@@ -170,8 +190,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.device_postprocess:
-        raise _device_postprocess_not_ported()
 
     contexts = load_contexts(args.ensemble_path, args.dataset_path,
                              args.ensemble_orientations, args.ensemble_folds, args.bf16,
@@ -187,8 +205,11 @@ def main(argv=None):
         dataset = (context.dataset if args.cohort is None
                    else context.dataset.get_cohort_dataset(args.cohort))
         print(f"Running evaluation for context {i}")
+        # --device-postprocess implies --device-argmax: the subjects that
+        # take the host cleanup fetch label ids too
         inference(dataset, context.model, args.out_folder, args.output_filename,
-                  device_argmax=args.device_argmax, device=args.device)
+                  device_argmax=args.device_argmax or args.device_postprocess,
+                  device_postprocess=args.device_postprocess, device=args.device)
 
 
 if __name__ == "__main__":

@@ -69,10 +69,11 @@ def _normalize_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
 def apply_stochastic_matrix_cl(y_pred: torch.Tensor, y_prior: torch.Tensor) -> torch.Tensor:
     """Channels-last cascade contraction: y_pred (..., C^2) holds per-voxel
     column-stochastic C x C matrices (row-major); refined[..., row] =
-    sum_col M[row, col] * prior[..., col]."""
+    sum_col M[row, col] * prior[..., col], in y_pred's dtype (an integer
+    one-hot prior is promoted)."""
     C = y_prior.shape[-1]
     M = y_pred.reshape(*y_pred.shape[:-1], C, C)
-    return torch.einsum("...rc,...c->...r", M, y_prior)
+    return torch.einsum("...rc,...c->...r", M, y_prior.to(M.dtype))
 
 
 def make_train_step(module: nn.Module, criterion, optimizer: OptimizerFactory,

@@ -10,7 +10,14 @@ training/train_step.py. The device levers of the configurations'
 and uploaded; batches are gathers, or patches drawn, on the device) and
 ``device_augmentation`` (ops/augment.py on each batch before the step; a
 config dict, or "auto" to derive it from the declared pipeline,
-training/auto_augment.py).
+training/auto_augment.py). A train predictor with ``refine_image`` (the
+cascade) ships that image of each batch (the prior) beside X and y, and
+the step contracts the model's transition matrices with it. A validation
+sweep that only needs counts (a ``device_argmax`` predictor with only
+Segmentation and InstanceSegmentation evaluators) is reduced on the device
+once a probe sweep has held it to the host chain, exactly
+(training/device_confusion.py; ``device_confusion=False`` keeps the host
+path).
 
 The host work runs in the JAX package's order, so a seeded run draws the
 same host randomness there and here: ``training_dataset[0]`` before the
@@ -47,7 +54,7 @@ import torch.nn.functional as F
 from ..data.device_cache import is_exact_onehot
 from ..data.loader import DataLoaderFactory
 from ..data.subject_filters import AnyFilter, RequireAttributes
-from ..evaluators import Evaluator, SegmentationEvaluator
+from ..evaluators import Evaluator
 from ..loggers import Logger, NonLogger
 from ..ops.bitpack import start_fetch
 from ..prediction import Predictor, _attach_prediction, add_evaluation_labels
@@ -138,17 +145,6 @@ def upload_batch(batch_cf, n_classes, device):
     return batch if n_classes is None else expand_ids(batch, n_classes)
 
 
-def device_confusion_sweep(scheduled, predictor) -> bool:
-    """Whether the JAX trainer would reduce this sweep's confusion counts on
-    the device (its training/device_confusion.py::sweep_spec): the predictor
-    argmaxes on the device and every evaluator is a SegmentationEvaluator
-    on ('y_pred_eval', 'y_eval')."""
-    return bool(scheduled) and getattr(predictor, "device_argmax", False) and all(
-        isinstance(s.evaluator, SegmentationEvaluator)
-        and s.evaluator.prediction_label_map_name == "y_pred_eval"
-        and s.evaluator.target_label_map_name == "y_eval" for s in scheduled)
-
-
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} waits for the port of ROADMAP Queue 1 {item}")
 
@@ -185,8 +181,6 @@ class SegmentationTrainer:
                 f"dict, {{}} for defaults, None, or 'auto'")
         if mesh is not None or spatial_axis is not None:
             raise _not_ported("mesh / spatial_axis", "item 10 (multi-device)")
-        if getattr(train_predictor, "refine_image", None) is not None:
-            raise _not_ported("refine_image (cascade)", "item 5 (cascade)")
         self.training_batch_size = training_batch_size
         self.save_rate = save_rate
         self.scoring_interval = scoring_interval
@@ -214,8 +208,9 @@ class SegmentationTrainer:
         # deterministic) and uploaded; batches become gathers, or patch
         # draws, on the device (data/device_cache.py)
         self.device_cache = device_cache
-        # None/True: a sweep the JAX trainer would reduce on the device
-        # raises until that reduction is ported; False: the host path
+        # None/True: a sweep that only needs counts is reduced on the device
+        # once the probe sweep has matched the host chain; False: the host
+        # path always
         self.device_confusion = device_confusion
 
         self.iteration = 0
@@ -223,6 +218,9 @@ class SegmentationTrainer:
         self.max_score_iteration = -1
         self._train_state: Optional[TrainState] = None
         self._restored_opt_state = None
+        # (iteration, "host" | "probe" | "on", seconds) of each validation
+        # sweep's predictions, reductions and probe check
+        self.sweep_times = []
 
     # ---- checkpoint state ---------------------------------------------
     def state_dict(self):
@@ -356,6 +354,14 @@ class SegmentationTrainer:
         sample = probe_subject if probe_subject is not None else training_dataset[0]
         label_attributes = dict(sample["y"].metadata)
 
+        # the run's device-confusion state machine (probe -> on or off)
+        confusion_mgr = None
+        if self.device_confusion is not False:
+            from .device_confusion import DeviceConfusionManager
+
+            confusion_mgr = DeviceConfusionManager(label_attributes)
+        self._confusion_mgr = confusion_mgr  # exposed: its state, its counters
+
         model = context.model
         # validation sweeps run through the predictors, which honor
         # model.compute_dtype: keep them in the training step's precision
@@ -366,6 +372,17 @@ class SegmentationTrainer:
         criterion = context.criterion
         optimizer = context.optimizer
         sagittal_split = getattr(self.train_predictor, "sagittal_split", False)
+
+        refine_image = getattr(self.train_predictor, "refine_image", None)
+        if refine_image is not None and device_aug is not None:
+            raise ValueError(
+                "device_augmentation with a refine_image (cascade) predictor is not supported: "
+                "geometric augmentation would misalign the prior; augment in the host "
+                "pipeline instead")
+        if refine_image is not None and self.device_cache:
+            raise ValueError(
+                "device_cache with a refine_image (cascade) predictor is not supported: the "
+                "prior is prediction-dependent")
 
         train_step = None
         timer = Timer()
@@ -393,6 +410,10 @@ class SegmentationTrainer:
                                           generator)
             subjects = next(training_iterator)
             batch_cf, n_classes = stack_batch(subjects, self.compute_dtype)
+            if refine_image is not None:
+                # the cascade's prior rides along for the step's refinement
+                batch_cf[refine_image] = np.stack(
+                    [np.asarray(s[refine_image].data) for s in subjects]).astype(np.float32)
             if device_aug is None:
                 return subjects, upload_batch(batch_cf, n_classes, device=model.device)
             # the device augmentation warps class ids and expands them after
@@ -431,7 +452,8 @@ class SegmentationTrainer:
                         opt_state=self._optimizer_for(model, optimizer))
                     train_step = make_train_step(model.module, criterion, optimizer,
                                                  sagittal_split=sagittal_split,
-                                                 compute_dtype=self.compute_dtype)
+                                                 compute_dtype=self.compute_dtype,
+                                                 refine_image=refine_image)
 
                 if device_aug is not None:
                     from ..ops.augment import augment_batch
@@ -503,25 +525,44 @@ class SegmentationTrainer:
                 # scheduled validation sweep
                 validation_evaluations = {}
                 if scheduled_validation:
-                    if self.device_confusion is not False and device_confusion_sweep(
-                            scheduled_validation, self.validation_predictor):
-                        raise _not_ported(
-                            "The device confusion reduction of a validation sweep (a "
-                            "device_argmax predictor with only SegmentationEvaluators; pass "
-                            "device_confusion=False for the host path)",
-                            "item 3 (native labeller and device post-processing)")
+                    t_sweep = time.perf_counter()
                     validation_filter = self.get_filter_from_scheduled_evaluations(
                         context.dataset, scheduled_validation)
                     validation_dataset.set_cohort(validation_filter)
                     validation_dataloader = self.validation_dataloader_factory.get_data_loader(
                         dataset=validation_dataset, batch_size=validation_batch_size,
                         num_workers=num_workers)
+                    use_dev_confusion = False
+                    if confusion_mgr is not None and confusion_mgr.state != "off":
+                        from .device_confusion import sweep_spec
+
+                        spec = sweep_spec(scheduled_validation, self.validation_predictor)
+                        use_dev_confusion = spec is not None
+                        if use_dev_confusion:
+                            confusion_mgr.configure_sweep(spec)
+                    probe_sweep = use_dev_confusion and confusion_mgr.state == "probe"
+                    sweep_state = confusion_mgr.state if use_dev_confusion else "host"
                     validation_subjects = []
                     for val_subjects in validation_dataloader:
-                        val_subjects, _ = self.validation_predictor.predict(
-                            model, val_subjects, label_attributes=label_attributes)
-                        add_evaluation_labels(val_subjects)
+                        if use_dev_confusion:
+                            self.validation_predictor._confusion_plan = confusion_mgr
+                        try:
+                            val_subjects, _ = self.validation_predictor.predict(
+                                model, val_subjects, label_attributes=label_attributes)
+                        finally:
+                            self.validation_predictor._confusion_plan = None
+                        # subjects reduced on the device carry no prediction
+                        # to invert
+                        add_evaluation_labels([s for s in val_subjects if "y_pred" in s])
                         validation_subjects += val_subjects
+                    if probe_sweep:
+                        # the probe sweep ran both paths: the device reduction
+                        # goes on only if its counts equal the host chain's
+                        # (and unchecked entries are stripped before the
+                        # evaluators read them)
+                        confusion_mgr.validate_probe(validation_subjects)
+                    self.sweep_times.append((self.iteration, sweep_state,
+                                             time.perf_counter() - t_sweep))
                     validation_subjects_map = {s["name"]: s for s in validation_subjects}
                     timer.stamp("model_forward_evaluation")
 

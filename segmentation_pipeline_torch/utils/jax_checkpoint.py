@@ -56,7 +56,6 @@ JAX_ONLY_MODULES = ("jax", "jaxlib", "flax", "orbax", "chex")
 # modules that the port does not have yet, with their ROADMAP item
 NOT_PORTED_MODULES = {
     "segmentation_pipeline_tpu.parallel": "item 10 (multi-device)",
-    "research.dmri_hippo.configs.cascade": "item 5 (cascade)",
 }
 
 # optax's state classes by name, with their fields
@@ -71,7 +70,6 @@ _PROCESSES = (False, "item 7-rem (process workers)")
 _JAX_ONLY = {
     "StandardDataLoader": {"use_processes": _PROCESSES},
     "PatchDataLoader": {"use_processes": _PROCESSES},
-    "StandardPredict": {"refine_image": (None, "item 5 (cascade)")},
     "PatchPredict": {"mesh": (None, "item 10 (multi-device)"),
                      "volume_sharded": (False, "item 10 (multi-device)")},
 }

@@ -3,9 +3,10 @@ run.py, research/msseg2/run.py and the ablation config
 configs/augmentation.py) against the JAX package's on the CPU: the parsers
 take the JAX CLIs' arguments and defaults (and ``--device``), ``main``
 trains two iterations at a small size (dmri_hippo on the default and the
-fast path) and writes checkpoints that the port's serving CLIs load, and
+fast path) and writes checkpoints that the port's serving CLIs load,
 every flag whose feature waits for a ROADMAP item raises naming it before
-any work is done."""
+any work is done, and the flags whose items were ported since
+(--device-postprocess, cascade_experiment) run."""
 import argparse
 import functools
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import segmentation_pipeline_torch as tsp
 from research.dmri_hippo import run as jrun
 from research.dmri_hippo.configs import augmentation as jaugmentation
@@ -154,17 +156,85 @@ def _run_args(command, *extra):
 @pytest.mark.parametrize("call, item", [
     (lambda: hippo_inference.main(MISSING, MISSING, "r", tta_mesh=True), "item 10"),
     (lambda: hippo_inference.main(MISSING, MISSING, "r", ensemble_affines=2), "item 4"),
-    (lambda: ms_inference.main([MISSING, MISSING, "o.nii.gz", "--device-postprocess"]), "item 3"),
-    (lambda: ms_inference.inference(None, None, "", "o.nii.gz", device_postprocess=True),
-     "item 3"),
-    (lambda: trun.cascade_experiment(trun.build_parser().parse_args(
-        ["cascade_experiment", MISSING, MISSING, "/nonexistent/logs"])), "item 5"),
-], ids=["tta-mesh", "ensemble-affines", "device-postprocess", "inference-device-postprocess",
-        "cascade"])
+], ids=["tta-mesh", "ensemble-affines"])
 def test_unported_flags_raise_naming_their_item(call, item):
     """Each raises before it reads anything: the paths do not exist."""
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+@pytest.fixture(scope="module")
+def msseg2_checkpoint(tmp_path_factory):
+    """An msseg2 context (patch 16, filters (4, 4, 8)) saved untrained, and
+    its dataset."""
+    root = tmp_path_factory.mktemp("msseg2-ckpt")
+    write_msseg2_dataset(root)
+    context = tmsseg2.get_context(device="cpu", variables={"DATASET_PATH": str(root)},
+                                  patch_size=16, filters=(4, 4, 8))
+    context.init_components()
+    context.model.ensure_initialized()
+    path = tmp_path_factory.mktemp("msseg2-model") / "msseg2.ckpt"
+    context.save(path)
+    return root, path
+
+
+def _masks(folder):
+    return {p.parent.name: tsp.read_nifti(p)[0] for p in sorted(folder.glob("*/mask.nii.gz"))}
+
+
+@pytest.mark.parametrize("case", ["device-postprocess", "inference-device-postprocess",
+                                  "cascade"])
+def test_lifted_flags_run(case, msseg2_checkpoint, hippo_root, small_hippo, tmp_path,
+                          monkeypatch, capsys):
+    """The flags that raised until their items were ported. ms_inference
+    --device-postprocess through main: msseg2's default pipeline is
+    geometric, so each subject takes the host cleanup and the masks equal
+    --device-argmax's. inference() with device_postprocess on a tape of
+    ConcatenateImages alone takes the fused path, against the host chain.
+    cascade_experiment trains the cascade context two iterations on
+    priors, and its checkpoints reload with the refined predictors."""
+    if case == "device-postprocess":
+        root, ckpt = msseg2_checkpoint
+        monkeypatch.setattr(ms_inference, "PATCH_SIZE", 16)
+        for flag in ("--device-postprocess", "--device-argmax"):
+            ms_inference.main([str(ckpt), str(root), "mask.nii.gz", "--cohort", "validation",
+                               "--out-folder", str(tmp_path / flag), flag, "--device", "cpu"])
+        assert "falling back to the host cleanup" in capsys.readouterr().out
+        fused = _masks(tmp_path / "--device-postprocess")
+        plain = _masks(tmp_path / "--device-argmax")
+        assert fused.keys() == plain.keys() and fused
+        for name in fused:
+            np.testing.assert_array_equal(fused[name], plain[name])
+    elif case == "inference-device-postprocess":
+        from test_torch_device_confusion import _ms_dataset, lesion_model
+
+        monkeypatch.setattr(ms_inference, "PATCH_SIZE", 16)
+        for fused in (True, False):
+            paths = ms_inference.inference(
+                _ms_dataset(tsp, tmp_path / str(fused), False), lesion_model(tsp), "",
+                "mask.nii.gz", device_argmax=True, device_postprocess=fused, device="cpu")
+            assert [p for _, p in paths] == ["fused" if fused else "host"] * 2
+        masks = [_masks(tmp_path / str(fused)) for fused in (True, False)]
+        assert masks[0].keys() == masks[1].keys() and masks[0]
+        for name in masks[0]:
+            np.testing.assert_array_equal(masks[0][name], masks[1][name])
+    else:
+        predictions = tmp_path / "predictions"
+        chip_smoke.write_priors(str(hippo_root), str(predictions), 2)
+        logs = tmp_path / "logs"
+        args = trun.build_parser().parse_args(
+            ["cascade_experiment", str(hippo_root), str(predictions), str(logs),
+             "--max-iterations", "2", "--num-workers", "0", "--device", "cpu"])
+        args.func(args)
+        checkpoints = _checkpoints(logs)
+        assert [p.name for p in checkpoints] == [f"dmri-hippo-iter{i:08}.ckpt" for i in (0, 2)]
+        context = tsp.Context("cpu", file_path=str(checkpoints[-1]),
+                              variables={"DATASET_PATH": str(hippo_root),
+                                         "PREDICTIONS_PATH": str(predictions)})
+        context.init_components()
+        assert context.config["model_type"] is None
+        assert context.trainer.validation_predictor.refine_image == "y_prior"
+        assert type(context.model.module.hypothesis).__name__ == "StochasticMatrix"
 
 
 def test_ported_grid_task_ids_train(hippo_root, small_hippo, tmp_path):

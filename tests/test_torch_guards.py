@@ -137,3 +137,24 @@ def test_qsm_and_dwi_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
     assert make(device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["cascade", "cascade-basic-unet", "fused-cleanup-predictor"])
+def test_cascade_and_fused_cleanup_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    """The cascade configuration (both model types) and ms_inference's
+    fused-cleanup predictor run on the card unless asked for the CPU."""
+    from segmentation_pipeline_torch.research.dmri_hippo.configs import cascade
+    from segmentation_pipeline_torch.research.msseg2.competition import ms_inference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    variables = {"DATASET_PATH": str(tmp_path), "PREDICTIONS_PATH": str(tmp_path)}
+    make = {
+        "cascade": lambda **kw: cascade.get_context(variables=variables, **kw),
+        "cascade-basic-unet": lambda **kw: cascade.get_context(
+            variables=variables, model_type="basic_unet", **kw),
+        "fused-cleanup-predictor": lambda **kw: ms_inference.competition_predictor(
+            device_postprocess=ms_inference.CLEANUP_CHAIN, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu")

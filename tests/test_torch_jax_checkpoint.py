@@ -235,11 +235,7 @@ def test_unported_contents_raise_naming_their_item(checkpoints):
     def processes(c):
         _trainer(c)["params"]["train_dataloader_factory"].use_processes = True
 
-    def cascade(c):
-        _trainer(c)["params"]["train_predictor"].refine_image = "y_prior"
-
-    for change, item in ((orbax, "item 8-rem"), (processes, "item 7-rem"),
-                         (cascade, "item 5")):
+    for change, item in ((orbax, "item 8-rem"), (processes, "item 7-rem")):
         with pytest.raises(NotImplementedError, match=item):
             convert_checkpoint_data(_jax_payload(ckpt, change))
 
@@ -251,6 +247,45 @@ def test_unported_contents_raise_naming_their_item(checkpoints):
 
     with pytest.raises(NotImplementedError, match="item 10"):
         convert_checkpoint_data(_jax_payload(ms_ckpt, mesh))
+
+
+def test_cascade_checkpoint_converts(checkpoints, tmp_path):
+    """A checkpoint of the cascade context (configs/cascade.py: the prior
+    loader, the StochasticMatrix head, refine_image predictors, SGD) loads
+    in the port with all of them, and its model answers as JAX's; a
+    refine_image set on another context's predictor carries over too."""
+    from research.dmri_hippo.configs import cascade as jcascade
+
+    root, ckpt, _ = checkpoints["dmri_hippo"]
+    predictions = tmp_path / "predictions"
+    import chip_smoke
+
+    chip_smoke.write_priors(str(root), str(predictions), 1)
+    variables = {"DATASET_PATH": str(root), "PREDICTIONS_PATH": str(predictions)}
+    jctx = jcascade.get_context(variables=variables, **SIZES["dmri_hippo"])
+    jctx.init_components()
+    x = np.random.default_rng(6).normal(size=(1, 3, 16, 16, 8)).astype(np.float32)
+    ref = np.asarray(jctx.model(x))
+    jctx.save(tmp_path / "cascade.ckpt")
+    [converted] = convert_jax_checkpoint(tmp_path / "cascade.ckpt", tmp_path / "port.ckpt")
+    tctx = tsp.Context("cpu", file_path=str(converted), variables=variables)
+    tctx.init_components()
+    assert type(tctx.model.module.hypothesis).__name__ == "StochasticMatrix"
+    assert tctx.model.module.hypothesis.channels == 2
+    for predictor in (tctx.trainer.train_predictor, tctx.trainer.validation_predictor):
+        assert predictor.refine_image == "y_prior" and "y_prior" in predictor.image_names
+        assert predictor.device == torch.device("cpu")
+    assert tctx.get_component_definition("optimizer")["constructor"] is tsp.SGD
+    out = tctx.model(torch.from_numpy(x)).numpy()
+    assert out.shape == (1, 4, 16, 16, 8)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert "y_prior" in tctx.dataset.get_cohort_dataset("cbbrain_validation")[0]
+
+    def refine(c):
+        _trainer(c)["params"]["train_predictor"].refine_image = "y_prior"
+
+    restored = convert_checkpoint_data(_jax_payload(ckpt, refine))
+    assert _trainer(restored)["params"]["train_predictor"].refine_image == "y_prior"
 
 
 def _find(value, cls_name, seen=None):

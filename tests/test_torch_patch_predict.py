@@ -241,14 +241,20 @@ def test_lazy_batch_collates_on_first_access():
 
 
 def test_device_postprocess_and_multi_device_wait_for_their_slices(pair):
-    _, model = pair
+    """device_postprocess (ported with the device morphology) needs
+    device_argmax and cleans the ids as JAX's fused predictor does; the
+    multi-device options still wait for their slice."""
+    jmodel, model = pair
     subjects = _subjects(tsp, [(8, 8, 8)])
     with pytest.raises(ValueError, match="requires device_argmax"):
         tsp.PatchPredict(patch_size=8, device_postprocess=[("remove_holes", 64)],
                          device="cpu").predict(model, subjects)
-    with pytest.raises(NotImplementedError, match="device morphology"):
-        tsp.PatchPredict(patch_size=8, device_argmax=True,
-                         device_postprocess=[("remove_holes", 64)],
-                         device="cpu").predict(model, subjects)
+    chain = [("remove_holes", 64), ("remove_small_components", 3)]
+    out, _ = tsp.PatchPredict(patch_size=8, device_argmax=True, device_postprocess=chain,
+                              device="cpu").predict(model, _subjects(tsp, [(10, 9, 6)]))
+    ref, _ = jsp.PatchPredict(patch_size=8, device_argmax=True,
+                              device_postprocess=chain).predict(jmodel,
+                                                                _subjects(jsp, [(10, 9, 6)]))
+    np.testing.assert_array_equal(out[0]["y_pred"].data, ref[0]["y_pred"].data)
     with pytest.raises(NotImplementedError, match="multi-device"):
         tsp.PatchPredict(patch_size=8, volume_sharded=True, device="cpu")

@@ -433,34 +433,44 @@ def hybrid_training_pipeline():
 @pytest.mark.parametrize("case", ["device_cache", "device_augmentation", "mesh", "spatial_axis",
                                   "refine_image", "device_confusion_sweep"])
 def test_what_is_not_ported_raises(e2e, tmp_path, case):
-    """mesh, spatial_axis, refine_image and a device confusion sweep raise
-    naming their ROADMAP items. Of the device levers, a hybrid split (a
-    host channel resynthesis) raised with the device cache until
-    training/hybrid_augment.py was ported: now it trains with the cache,
-    whichever lever is set first, through the per-batch host stage; without
-    the cache the resynthesis runs inline on the host and the device
-    augmentation trains."""
+    """mesh and spatial_axis raise naming their ROADMAP item. Of the device
+    levers, a hybrid split (a host channel resynthesis) raised with the
+    device cache until training/hybrid_augment.py was ported: now it trains
+    with the cache, whichever lever is set first, through the per-batch host
+    stage; without the cache the resynthesis runs inline on the host and
+    the device augmentation trains. A refine_image predictor (the cascade)
+    and a device-reduced validation sweep raised until their items were
+    ported: now the first trains a StochasticMatrix head on a prior (and is
+    refused with the device cache, as in JAX) and the second's probe sweep
+    turns the device reduction on."""
     root, _, _, _ = e2e
-
-    class RefinePredict(tsp.StandardPredict):
-        refine_image = "y_prior"
 
     levers = {"device_cache": True, "device_augmentation": "auto"}
     kwargs = {"device_cache": dict(levers),
               "device_augmentation": dict(reversed(levers.items())),
               "mesh": {"mesh": object()},
               "spatial_axis": {"spatial_axis": "w"},
-              "refine_image": {"train_predictor": RefinePredict(device="cpu")},
+              "refine_image": {
+                  "train_predictor": tsp.StandardPredict(image_names=["X", "y"],
+                                                         refine_image="y_prior", device="cpu"),
+                  "validation_predictor": tsp.StandardPredict(refine_image="y_prior",
+                                                              device="cpu")},
               "device_confusion_sweep": {"validation_predictor": tsp.StandardPredict(
                   image_names=["X"], device_argmax=True, device="cpu")}}[case]
-    item = {"refine_image": "item 5", "mesh": "item 10", "spatial_axis": "item 10",
-            "device_confusion_sweep": "item 3"}.get(case)
+    item = {"mesh": "item 10", "spatial_axis": "item 10"}.get(case)
 
     def context_of(**trainer_kwargs):
         context = build_context(tsp, root, **trainer_kwargs)
         if case in levers:
             context.get_component_definition("dataset")["params"]["transforms"]["training"] = \
                 hybrid_training_pipeline()
+        if case == "refine_image":
+            # the target's one-hot as the prior, a StochasticMatrix head
+            context.get_component_definition("dataset")["params"]["transforms"][
+                "default"].transforms.append(tsp.CopyProperty("y", "y_prior"))
+            context.update_component("model", output_channels=4,
+                                     hypothesis_class=tsp.StochasticMatrix,
+                                     hypothesis_params={"channels": 2})
         return context
 
     context = context_of(**kwargs)
@@ -469,14 +479,25 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
         assert context.trainer._hybrid_rt is not None
         assert context.trainer._hybrid_rt.spec.image_order == ["t1"]
-    else:
+    elif item is not None:
         with pytest.raises(NotImplementedError, match=item):
             context.init_components()
             context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
+    else:
+        context.init_components()
+        context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
+        assert context.trainer.iteration == 1
+    if case == "refine_image":
+        context = context_of(device_cache=True, **kwargs)
+        context.init_components()
+        with pytest.raises(ValueError, match="device_cache with a refine_image"):
+            context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
     if case == "device_confusion_sweep":
+        assert context.trainer._confusion_mgr.state == "on"
         context = context_of(device_confusion=False, **kwargs)
         context.init_components()
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
+        assert context.trainer._confusion_mgr is None
     if case == "device_augmentation":
         context = context_of(device_augmentation="auto")
         context.init_components()
