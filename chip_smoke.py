@@ -20,8 +20,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    version on the same inputs (also bit for bit on small-integer inputs)
    and timed with CUDA events beside the plain version, F.conv3d (cuDNN)
    and the card's bound (float32: the 3xTF32 bound, with the CUDA-core one
-   beside it). Then, in float32 and untimed, every class of the 6 permuted
-   grids an EnsembleOrientations request gives it (16 half-volumes).
+   beside it). Then, untimed in both types, every class at the affine TTA
+   batch (128: 4 warps of the 32), and in float32 every class of the 6
+   permuted grids an EnsembleOrientations request gives it (16
+   half-volumes).
 4. gradient kernels: dX at every input-gradient class of the train step (the
    forward classes with Cin and Cout swapped, except the convs that read the
    network's input) and dW at every forward class, at the training batch
@@ -61,8 +63,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    0's flip members on the first subject against the port on the CPU, and
    one EnsembleOrientations("majority", batched=True) request of one
    subject (6 forwards of 25 at N=16), with one permuted forward against
-   the CPU. Every answer ends on the 112x104x20 grid with labels in
-   {0, 1, 2}.
+   the CPU. Then affine TTA as hippo_inference --ensemble-affines 4
+   --ensemble-flips --ensemble-folds --batched-tta composes it (per fold,
+   4 warps of the 4 flips in one forward): one untimed and 3 timed
+   requests in float32 and in bfloat16 (2 forwards of 25 at N=128), peak
+   memory, and fold 0's composition with the identity and one warp on a
+   24x48x24 cut of the first subject's first half-volume against the port
+   on the CPU (labels equal on at least 0.999 of the voxels). Every answer
+   ends on the 112x104x20 grid with labels in {0, 1, 2}.
 7. msseg2: msseg2 serving, as research/msseg2/competition/ms_inference.py
    runs it (non-fused) and as the msseg2 trainer's validation sweep
    predicts: the forward kernel at the 15 classes of
@@ -84,7 +92,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    batch 1, one 96^3 patch against the port on the CPU, and the port's
    strided and transposed convs with cuDNN's TF32 switched on for the
    process against float64 (beside a bare F call). One profiled request
-   per type.
+   per type. Then serving determinism: the competition request's
+   probabilities (no argmax) on one raw subject, twice per type, in this
+   process and in one started afresh, bit for bit.
 8. train: the dmri_hippo train step, as the trainer calls it:
    make_train_step(sagittal_split=True) with HybridLogisticDiceLoss and
    Adam(lr=2e-4) on SegModel(NestedResUNet(3 -> 2, filters=40,
@@ -142,12 +152,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    checkpoints, and each checkpoint reloaded into a fresh Context
    answering a probe batch as its model did when it was saved, bit for
    bit. Iterations per second of the float32 trainer against num_workers
-   in {2, 8} (21 iterations each, once; 4 is the runs above) with the
-   timer's median split, the validation sweep's time, the synchronous part
-   of a checkpoint save, peak memory and the idle share over 5 profiled
-   iterations. Then msseg2's trainer on the dataset of phase 10 for 4
-   iterations in float32: 67/32/34
-   launches per iteration, 34 forward per validation patch batch. Where
+   in {2, 8} (12 iterations each, once; 4 is the runs above) and, at 4,
+   process workers and then threads again, with the timer's median split,
+   the validation sweep's time, the synchronous part of a checkpoint save,
+   peak memory and the idle share over 5 profiled iterations. Then
+   msseg2's trainer on the dataset of phase 10 for 3 iterations in
+   float32: 67/32/34
+   launches per iteration, 34 forward per validation patch batch. First of
+   all, SubjectFolder's load ms per subject of both datasets through the
+   native NIfTI reader against the numpy codec, in turns, arrays equal. Where
    matplotlib or PIL is missing, one line says so and the contour-image
    schedules are dropped from both contexts before they train.
 12. fast-path: the configurations' tpu_fast_path=True (device_cache and
@@ -176,7 +189,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    --ensemble-flips --ensemble-folds --batched-tta on the 4 validation
    subjects, in f32 and with --bf16 (50 launches at N=32; NIfTIs on the
    scanner grid, report, settings JSON; wall time per subject split into
-   model load, device work and host work); evaluate.py on the f32
+   model load, device work and host work), and the same with
+   --ensemble-affines 4 (50 launches at N=128, peak memory); evaluate.py on the f32
    predictions where pandas imports; run_inference at 48 orientations on
    two subjects (25 launches per orientation at N=1), and its first 4
    orientations of one subject against the port on the CPU from the same
@@ -184,8 +198,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    asserted), ms_inference on its checkpoint with and without
    --device-argmax (34 launches per patch; identical masks), ms_run in a
    subprocess on one raw FLAIR pair (its mask equals ms_inference's on the
-   staged folder); and the flags that raise (--tta-mesh, --ensemble-affines)
-   name their ROADMAP items.
+   staged folder); and the flag that raises (--tta-mesh) names its ROADMAP
+   item.
 14. qsm-dwi: qsm's configuration (segmentation_pipeline_torch/research/
    qsm_deep_grey_matter: NestedResUNet(2 -> 10, filters=40) on the
    reference crop 120x144x96 of 256x288x128 volumes) and dmri_hippo's DWI
@@ -245,6 +259,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+
+`python3 chip_smoke.py --compare PARENT . . PARENT` runs none of the phases:
+it times msseg2 competition requests in each checkout given (one process
+each, on that checkout's port), to hold a commit against its parent on one
+card (compare_requests).
 """
 from __future__ import annotations
 
@@ -252,15 +271,19 @@ import argparse
 import contextlib
 import copy
 import cProfile
+import gc
+import inspect
 import itertools
 import json
 import os
 import pstats
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -269,8 +292,9 @@ import torch
 import torch.nn.functional as F
 
 import segmentation_pipeline_torch as tsp
-from segmentation_pipeline_torch import (SGD, Adam, EnsembleFlips, EnsembleModels,
-                                         EnsembleOrientations, HybridLogisticDiceLoss, LabelMap,
+from segmentation_pipeline_torch import (SGD, Adam, EnsembleAffines, EnsembleFlips,
+                                         EnsembleModels, EnsembleOrientations,
+                                         HybridLogisticDiceLoss, LabelMap,
                                          PatchDataLoader, PatchPredict, ScalarImage, Subject,
                                          WeightedSampler, collate_to_device, create_train_state,
                                          make_train_step, seed_all)
@@ -921,6 +945,33 @@ def fold_flip_tta(folds, batched=True):
                            for m in folds], "majority")
 
 
+# affine TTA (hippo_inference --ensemble-affines 4 --ensemble-flips
+# --ensemble-folds --batched-tta): per fold, 4 warps of the 4 flips of the
+# 8 half-volumes in one forward
+AFFINE_MEMBERS = 4
+AFFINE_BATCH = AFFINE_MEMBERS * TTA_BATCH
+AFFINE_REQUESTS = 3
+# the CPU check: the identity and one warp on a cut of one half-volume
+# (the full composition of one subject takes about two minutes on the card
+# host's CPU); the cut keeps each side a multiple of 8 for the 3 pools
+AFFINE_CPU_MEMBERS = 2
+AFFINE_CPU_CUT = (24, 48, 24)
+# its labels, card against CPU: the network's outputs agree within
+# CPU_PROB_TOL, so a label moves only where a member's top two
+# probabilities nearly tie or a vote ties; at most this share may differ
+AFFINE_LABEL_AGREEMENT = 0.999
+
+
+def affine_flip_tta(folds, members=AFFINE_MEMBERS):
+    """hippo_inference's composition: each fold under batched flip TTA under
+    batched affine TTA of ``members`` (majority, scales 0.1, degrees 10,
+    seed 0), and a majority over the folds."""
+    return EnsembleModels(
+        [EnsembleAffines(EnsembleFlips(m, "majority", spatial_dims=FLIP_DIMS, batched=True),
+                         num_members=members, scales=0.1, degrees=10,
+                         strategy="majority", batched=True) for m in folds], "majority")
+
+
 def check_original_grid(subjects):
     """Answers inverted to the scanner grid and post-processed: int32 labels
     in {0, 1, 2} on the original grid, with the original affine."""
@@ -1044,9 +1095,65 @@ def tta_phase(card, seed, rows):
                         f"tta {name}", card)
         if dtype == torch.float32:
             tta_checks(card, seed, folds, predictor, pool, labels[0])
+    affine_part(card, seed, folds, predictor, pool)
     for row in rows:
         row["launches"] = by_dtype[row["_key"][0]][row["_key"]]
         assert row["launches"] > 0, row["name"]
+
+
+def affine_part(card, seed, folds, predictor, pool):
+    """Affine TTA requests (affine_flip_tta) of 4 subjects in f32 and bf16:
+    ms per request, peak memory, 2 forwards of 25 launches at N=128; then
+    fold 0's composition (AFFINE_CPU_MEMBERS members) on a cut of the
+    first subject's first half-volume on the card and on the port on the
+    CPU."""
+    tta = affine_flip_tta(folds)
+    per_request = FOLDS * CONVS_PER_FORWARD
+    for dtype in DTYPES:
+        name = DTYPE_NAMES[dtype]
+        for m in folds:
+            m.compute_dtype = None if dtype == torch.float32 else "bfloat16"
+        with uncounted():
+            tta_requests(tta, predictor, pool, 1)
+        torch.cuda.reset_peak_memory_stats()
+        (times, _, _, shares), launches, by_shape = launches_counted(
+            lambda: tta_requests(tta, predictor, pool, AFFINE_REQUESTS))
+        peak = torch.cuda.max_memory_allocated()
+        assert launches == AFFINE_REQUESTS * per_request, launches
+        assert by_shape == expected_launches(dtype, AFFINE_REQUESTS * FOLDS, AFFINE_BATCH), \
+            by_shape
+        host_ms = statistics.median(times["inversion"]) \
+            + statistics.median(times["post-processing"])
+        print(f"tta affine {name} (--ensemble-affines {AFFINE_MEMBERS} --ensemble-flips "
+              f"--ensemble-folds --batched-tta): median "
+              f"{statistics.median(times['request']):.3f} ms per request over "
+              f"{AFFINE_REQUESTS} (" + ", ".join(f"{t:.3f}" for t in times["request"])
+              + f"), {per_request} launches per request at N={AFFINE_BATCH}, "
+              f"max_memory_allocated {peak} bytes; inversion + post-processing median "
+              f"{host_ms:.3f} ms (host); label shares " + ", ".join(f"{v:.4f}" for v in shares)
+              + f" [{card}]", flush=True)
+    for m in folds:
+        m.compute_dtype = None
+    # fold 0's composition with the identity and one warp, on a cut of the
+    # first subject's first half-volume (8 forwards on the CPU)
+    torch.set_num_threads(os.cpu_count() or 1)
+    x = split_and_flip(collate_subjects([copy.deepcopy(pool[0])], ["X"], device="cuda")["X"])
+    x = x[:1, :, :AFFINE_CPU_CUT[0], :AFFINE_CPU_CUT[1], :AFFINE_CPU_CUT[2]].contiguous()
+    cpu_fold = fold_models(seed, "cpu")[0]
+    with uncounted():
+        on_card = affine_flip_tta([folds[0]], AFFINE_CPU_MEMBERS)(x).cpu()
+    t0 = time.perf_counter()
+    on_cpu = affine_flip_tta([cpu_fold], AFFINE_CPU_MEMBERS)(x.cpu())
+    cpu_s = time.perf_counter() - t0
+    a, b = on_card.argmax(1), on_cpu.argmax(1)
+    agree = float((a == b).float().mean())
+    print(f"tta affine f32 fold 0 composition ({AFFINE_CPU_MEMBERS} members x "
+          f"{2 ** len(FLIP_DIMS)} flips, a {'x'.join(map(str, x.shape[2:]))} cut of one "
+          f"half-volume) vs CPU port: labels equal on "
+          f"{agree:.6f} of the voxels ({int((a != b).sum())} differ; at least "
+          f"{AFFINE_LABEL_AGREEMENT} required); CPU took {cpu_s:.1f} s [{card}]",
+          flush=True)
+    assert agree >= AFFINE_LABEL_AGREEMENT, agree
 
 
 def tta_checks(card, seed, folds, predictor, pool, batched_labels):
@@ -1990,11 +2097,11 @@ TRAINER_WORKERS = 4
 # phase, and 4, which the runs above read at TRAINER_ITERATIONS, for the
 # qsm-dwi phase
 WORKER_COUNTS = (2, 8)
-WORKER_ITERATIONS = 21
+WORKER_ITERATIONS = 12
 PROFILE_WARMUP_ITERATIONS = 3
 PROFILED_ITERATIONS = 5
-# host-bound (seconds an iteration): 4 iterations, cut from 6 for the qsm-dwi phase
-MS_TRAINER_ITERATIONS = 4
+# host-bound (seconds an iteration): 3 iterations, cut from 6 for later phases
+MS_TRAINER_ITERATIONS = 3
 # the fast-path phase: msseg2's iterations and the batch of the
 # augmentation checks (the trainers' batch)
 MS_FAST_ITERATIONS, MS_FAST_PROFILE_START = 31, 16
@@ -2366,25 +2473,39 @@ def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
 def worker_sweep(card, context):
     """Iterations per second of the f32 trainer against num_workers, over
     the iterations with no evaluator (beside the timer's median split) and
-    over the whole train() call."""
-    rates = {}
-    for workers in WORKER_COUNTS:
+    over the whole train() call; at TRAINER_WORKERS, process workers (the
+    training loader's use_processes) and then threads again."""
+    rates, prefetch = {}, {}
+    factory = context.trainer.train_dataloader_factory
+    runs = [(w, False) for w in WORKER_COUNTS] + [(TRAINER_WORKERS, p) for p in (True, False)]
+    for workers, processes in runs:
         logger = MemoryLogger()
         first = context.trainer.iteration
+        factory.use_processes = processes
         reset_launch_counts()
         t0 = time.perf_counter()
-        context.trainer.train(context, max_iterations=WORKER_ITERATIONS, num_workers=workers,
-                              validation_batch_size=VALIDATION_BATCH, logger=logger)
+        try:
+            context.trainer.train(context, max_iterations=WORKER_ITERATIONS,
+                                  num_workers=workers, validation_batch_size=VALIDATION_BATCH,
+                                  logger=logger)
+        finally:
+            factory.close_pools()
+            factory.use_processes = False
         wall_s = time.perf_counter() - t0
         counts = launch_counts()
         assert counts["dw"].total() == CONVS_PER_FORWARD * WORKER_ITERATIONS, counts["dw"]
-        plain, text = split_text(plain_iterations(logger.records, first), WORKER_ITERATIONS,
-                                 wall_s)
-        rates.setdefault(workers, []).append((plain, WORKER_ITERATIONS / wall_s))
-        print(f"trainer dmri_hippo f32 num_workers={workers}: {text} [{card}]", flush=True)
+        timers = plain_iterations(logger.records, first)
+        plain, text = split_text(timers, WORKER_ITERATIONS, wall_s)
+        kind = f"{workers} {'processes' if processes else 'threads'}"
+        rates.setdefault(kind, []).append((plain, WORKER_ITERATIONS / wall_s))
+        prefetch.setdefault(kind, []).append(
+            statistics.median(t["next_batch_prefetch"] for t in timers) * 1e3)
+        print(f"trainer dmri_hippo f32 num_workers={kind}: {text} [{card}]", flush=True)
     print("trainer dmri_hippo f32 iterations/s by num_workers (plain iterations / whole call, "
-          "each reading): " + "; ".join(f"{w}: " + ", ".join(f"{p:.3f}/{a:.3f}" for p, a in r)
-                                       for w, r in rates.items()) + f" [{card}]", flush=True)
+          "each reading; next_batch_prefetch median ms): " + "; ".join(
+              f"{k}: " + ", ".join(f"{p:.3f}/{a:.3f}" for p, a in r) + " ("
+              + ", ".join(f"{m:.1f}" for m in prefetch[k]) + ")" for k, r in rates.items())
+          + f" [{card}]", flush=True)
     return rates
 
 
@@ -2473,10 +2594,50 @@ def ms_trainer_run(card, root, logs, drop_contours, fast_path=False,
     return context
 
 
+def reader_check(card, root, ms_root, rounds=1, count=2):
+    """SubjectFolder's load ms per subject of the configurations' datasets
+    (dmri_hippo under ``root``, msseg2 under ``ms_root``; the first
+    ``count`` of each) through the native NIfTI reader (read_nifti's
+    path) and through the numpy codec alone (the reader made to refuse
+    every file), in turns (codec, reader, reader, codec) per round; every
+    array and affine equal."""
+    parts = []
+    for label, config, folder in (("dmri_hippo", hippo_config, root),
+                                  ("msseg2", msseg2_config, ms_root)):
+        context = config.get_context(variables={"DATASET_PATH": folder})
+        context.keep_components(("dataset",))
+        context.init_components()
+        dataset = context.dataset
+        times, loaded = {"reader": [], "codec": []}, {}
+        for path in (("codec", "reader", "reader", "codec") * rounds):
+            subjects = [copy.deepcopy(s) for s in dataset.all_subjects[:count]]
+            with contextlib.ExitStack() as stack:
+                if path == "codec":
+                    stack.enter_context(patched(native, "nifti_read_raw_native",
+                                                lambda _: None))
+                t0 = time.perf_counter()
+                for s in subjects:
+                    s.load()
+                times[path].append((time.perf_counter() - t0) * 1e3 / len(subjects))
+            loaded[path] = subjects
+        for a, b in zip(loaded["reader"], loaded["codec"]):
+            for key, image in a.get_images_dict(intensity_only=False).items():
+                assert np.array_equal(image.data, b[key].data, equal_nan=True), \
+                    (label, a["name"], key)
+                assert np.array_equal(image.affine, b[key].affine), (label, a["name"], key)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        parts.append(f"{label} ({len(subjects)} subjects) reader {med['reader']:.2f}, codec "
+                     f"{med['codec']:.2f} ms per subject")
+    print("nifti reader: SubjectFolder load, medians of " + str(2 * rounds) + " each: "
+          + "; ".join(parts) + f"; arrays and affines equal [{card}]", flush=True)
+
+
 def trainer_phase(card, root, ms_root, tmp, drop_contours):
     """The sustained training loop on the card: dmri_hippo in f32 and bf16
-    over the dataset under ``root``, the f32 worker sweep and profile, then
-    msseg2 in f32 over the dataset under ``ms_root``."""
+    over the dataset under ``root``, the f32 worker sweep (threads and
+    process workers) and profile, then msseg2 in f32 over the dataset under
+    ``ms_root``; first, the NIfTI reader against the codec on both."""
+    reader_check(card, root, ms_root)
     contexts = {}
     for dtype in (torch.float32, torch.bfloat16):
         contexts[dtype], _ = hippo_trainer_run(
@@ -2774,6 +2935,22 @@ def cli_hippo_serving(card, root, ensemble, tmp):
                                                       labels[torch.bfloat16])])
     print(f"cli hippo_inference bf16 against f32: {same:.5f} of the voxels share the label",
           flush=True)
+    for dtype in DTYPES:
+        out = os.path.join(tmp, f"cli-affine-{DTYPE_NAMES[dtype]}")
+        os.makedirs(out)
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, spent, counts = cli_run(targets, lambda: cli_hippo.main(
+            ensemble, root, "cli", out_folder=out, ensemble_flips=True, ensemble_folds=True,
+            ensemble_affines=AFFINE_MEMBERS, batched_tta=True, cohort=CLI_HIPPO_COHORT,
+            bf16=dtype == torch.bfloat16))
+        assert counts["fwd"] == expected_launches(dtype, FOLDS, AFFINE_BATCH), counts["fwd"]
+        hippo_outputs(out, root, names)
+        print(f"cli hippo_inference {DTYPE_NAMES[dtype]} --ensemble-affines {AFFINE_MEMBERS} "
+              f"--ensemble-flips --ensemble-folds --batched-tta: the request (one predictor "
+              f"call, {len(names)} subjects) {spent['device'] * 1e3:.3f} ms; "
+              f"{split_per_subject(wall, spent, len(names))}; {FOLDS * CONVS_PER_FORWARD} "
+              f"forward launches at N={AFFINE_BATCH}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes [{card}]", flush=True)
     try:
         import pandas  # noqa: F401
     except ImportError as error:
@@ -2919,7 +3096,6 @@ def cli_raises():
     missing = "/nonexistent"
     cases = (
         (lambda: cli_hippo.main(missing, missing, "r", tta_mesh=True), "item 10"),
-        (lambda: cli_hippo.main(missing, missing, "r", ensemble_affines=2), "item 4"),
     )
     for call, item in cases:
         try:
@@ -2929,6 +3105,129 @@ def cli_raises():
             print(f"cli raises: {error}", flush=True)
         else:
             raise AssertionError(f"no NotImplementedError naming {item}")
+
+
+# Serving determinism: the msseg2 competition request, probabilities and not
+# only masks, in separate processes (each one picks its own cuDNN algorithms).
+DETERMINISM_PROCESSES = 2
+
+
+def serve_probabilities(seed, out):
+    """In a process of its own: the competition request's probabilities
+    (no argmax) on one raw msseg2 subject at random weights from ``seed``,
+    twice in float32 and twice in bfloat16, saved to ``out`` (.npz)."""
+    build.build(conv3x3.SOURCES)
+    rng = np.random.default_rng(seed)
+    raw = msseg2_subject(tsp, *msseg2_volumes(rng, MS_RAW_GRID, MS_RAW_SPACING,
+                                              MS_SEMI_AXES_MM), "ms-0")
+    subject = msseg2_config.build_pipelines(MS_PATCH)["default"](raw)
+    model = msseg2_model(seed, "cuda")
+    predictor = competition_predictor()
+    arrays = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.compute_dtype = None if dtype == torch.float32 else "bfloat16"
+        for call in range(2):
+            [served], _ = predictor.predict(model, [copy.deepcopy(subject)])
+            arrays[f"{DTYPE_NAMES[dtype]}-{call}"] = np.asarray(served["y_pred"].data)
+    np.savez(out, **arrays)
+
+
+def serving_determinism(card, seed, tmp, processes=DETERMINISM_PROCESSES):
+    """The competition request's probabilities from ``processes`` processes
+    (this one and the rest started afresh), two calls per type in each, bit
+    for bit: every call against this process's first call of its type.
+    Raises where any differ."""
+    files = [os.path.join(tmp, f"probabilities-{p}.npz") for p in range(processes)]
+    with uncounted():
+        serve_probabilities(seed, files[0])
+    for out in files[1:]:
+        subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                        f"chip_smoke.serve_probabilities({seed}, {out!r})"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), check=True, timeout=600)
+    reference = np.load(files[0])
+    verdict = []
+    for dtype in ("f32", "bf16"):
+        ref = reference[f"{dtype}-0"]
+        differ = [(p, call, int((np.load(f)[f"{dtype}-{call}"] != ref).sum()),
+                   float(np.abs(np.load(f)[f"{dtype}-{call}"] - ref).max()))
+                  for p, f in enumerate(files) for call in range(2)]
+        bad = [d for d in differ if d[2]]
+        verdict.append(f"{dtype} {2 * processes - len(bad)} of {2 * processes} calls bit for bit"
+                       + (f", differing (process, call, voxels, max abs): {bad}" if bad else ""))
+    for f in files:
+        os.unlink(f)
+    line = (f"serving determinism: msseg2 competition request probabilities on "
+            f"{'x'.join(map(str, MS_RAW_GRID))} in {processes} processes: "
+            + "; ".join(verdict) + f" [{card}]")
+    print(line, flush=True)
+    assert "differing" not in line, line
+
+
+# Commit against commit (not run by default): ms per msseg2 competition
+# request from several checkouts, each in a process of its own, in one call.
+COMPARE_REQUESTS = 5
+
+
+def request_times(seed, requests, card):
+    """Run by source in a process whose working directory is a checkout, on
+    that checkout's chip_smoke and port (names that older chip_smoke
+    scripts also define): ms per competition request on one raw msseg2
+    subject at random weights from ``seed``, f32 then bf16, each after one
+    untimed, then one profiled request per type; the times on a ``request
+    times`` JSON line."""
+    import copy
+    import json
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.build.build(cs.conv3x3.SOURCES)
+    rng = np.random.default_rng(seed + 7)
+    raw = cs.msseg2_subject(cs.tsp, *cs.msseg2_volumes(rng, cs.MS_RAW_GRID, cs.MS_RAW_SPACING,
+                                                       cs.MS_SEMI_AXES_MM), "ms-0")
+    subject = cs.msseg2_config.build_pipelines(cs.MS_PATCH)["default"](raw)
+    model = cs.msseg2_model(seed, "cuda")
+    predictor = cs.competition_predictor(device_argmax=True)
+    times = {}
+    for name in ("f32", "bf16"):
+        model.compute_dtype = None if name == "f32" else "bfloat16"
+        times[name] = []
+        for _ in range(requests + 1):
+            one = copy.deepcopy(subject)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictor.predict(model, [one])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        del times[name][0]
+        cs.profile_request(model, predictor, [copy.deepcopy(subject)], f"msseg2 {name}", card)
+    print("request times " + json.dumps(times), flush=True)
+
+
+def compare_requests(card, trees, seed, requests=COMPARE_REQUESTS):
+    """``request_times`` in each checkout of ``trees`` in turn (give the
+    parent and the change as parent, change, change, parent); each
+    process's output, then the medians by checkout and type."""
+    code = inspect.getsource(request_times) + f"\nrequest_times({seed}, {requests}, {card!r})\n"
+    by_tree = {}
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tree, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, timeout=900)
+        print(f"== {tree}\n{proc.stdout.strip()}", flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"request_times failed in {tree} (rc {proc.returncode})")
+        line = next(x for x in proc.stdout.splitlines() if x.startswith("request times "))
+        for name, values in json.loads(line[len("request times "):]).items():
+            by_tree.setdefault(tree, {}).setdefault(name, []).extend(values)
+    for tree, by_type in by_tree.items():
+        print(f"compare {tree}: msseg2 competition request ms, median of "
+              f"{len(by_type['f32'])}: " + "; ".join(
+                  f"{name} {statistics.median(v):.3f} ({min(v):.3f}-{max(v):.3f})"
+                  for name, v in by_type.items()) + f" [{card}]", flush=True)
 
 
 def cli_phase(card, seed, root, ms_root, tmp, drop_contours):
@@ -3754,16 +4053,83 @@ def cascade_cleanup_phase(card, seed, root, ms_root, tmp, drop_contours, device)
     return rows
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
+def descendants(pid=None) -> list:
+    """The live processes below ``pid`` (this process by default), read
+    from /proc; a zombie has ended and is left out."""
+    children = {}
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(entry))
+    found, todo = [], [os.getpid() if pid is None else pid]
+    while todo:
+        below = children.get(todo.pop(), [])
+        found += below
+        todo += below
+    return found
 
-    card = card_line()
-    print(card, flush=True)
+
+def command_line(pid) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:160]
+    except OSError:
+        return "?"
+
+
+def kill_and_wait(pids, timeout_s=30.0):
+    """SIGKILL each of ``pids`` and wait until none runs; a child of this
+    process is reaped."""
+    for pid in pids:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + timeout_s
+    while set(pids) & set(descendants()) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    for pid in pids:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, os.WNOHANG)
+
+
+def stop_child_processes() -> list:
+    """Stops every process this script started that still runs, and
+    returns the leaks among them. Process workers (the loaders'
+    use_processes) leave multiprocessing's forkserver and resource tracker
+    behind: they stop on their own only after this process has ended, when
+    they read that their pipes closed, so they are stopped here and waited
+    for. Any other live process below this one is a leak (a pool that was
+    not closed, a child that was not waited for): it is killed, and
+    returned with its command line."""
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()
+    server, tracker = forkserver._forkserver, resource_tracker._resource_tracker
+    helpers = {getattr(server, "_forkserver_pid", None), getattr(tracker, "_pid", None)}
+    leaks = [(pid, command_line(pid)) for pid in descendants() if pid not in helpers]
+    kill_and_wait([pid for pid, _ in leaks])
+    for helper, pid in ((server, getattr(server, "_forkserver_pid", None)),
+                        (tracker, getattr(tracker, "_pid", None))):
+        if pid is None:
+            continue
+        # _stop closes the helper's pipe and waits for it to end
+        stopper = threading.Thread(target=getattr(helper, "_stop", lambda: None), daemon=True)
+        stopper.start()
+        stopper.join(30.0)
+        if pid in descendants():
+            kill_and_wait([pid])
+    rest = descendants()
+    leaks += [(pid, command_line(pid)) for pid in rest]
+    kill_and_wait(rest)
+    return leaks
+
+
+def run_phases(args, card):
+    """Every phase on the card; returns the kernels line's rows."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -3778,28 +4144,49 @@ def main() -> int:
               flush=True)
     t0 = time.perf_counter()
     native.library()
-    print(f"build: g++ {native.SOURCE} {time.perf_counter() - t0:.1f} s "
-          f"{build.build_logs.get(native.SOURCE, '(library was already built)').strip()}",
-          flush=True)
+    native.nifti_library()
+    for source in (native.SOURCE, native.NIFTI_SOURCE):
+        print(f"build: g++ {source} "
+              f"{build.build_logs.get(source, '(library was already built)').strip()}",
+              flush=True)
+    print(f"build: g++ {time.perf_counter() - t0:.1f} s", flush=True)
 
     device, half_batch = torch.device("cuda"), 2 * SUBJECTS_PER_REQUEST
-    rows = kernel_phase(device, half_batch, args.seed, card)
-    tta_rows = kernel_phase(device, TTA_BATCH, args.seed + 4, card)
-    check_orientation_grids(device, args.seed, card)
-    grad_rows = grad_kernel_phase(device, half_batch, args.seed, card)
-    ms_rows = kernel_phase(device, 1, args.seed + 6, card, MS_CONV_CLASSES)
-    check_classes(device, args.seed + 8, card, MS_LARGE_BATCH, MS_LARGE_CLASSES)
-    ms_train_rows = (kernel_phase(device, MS_TRAIN_BATCH, args.seed + 13, card, MS_CONV_CLASSES,
-                                  timing=MS_TRAIN_TIMING)
-                     + grad_kernel_phase(device, MS_TRAIN_BATCH, args.seed + 14, card,
-                                         MS_CONV_CLASSES, MS_IN_CHANNELS, timing=MS_TRAIN_TIMING))
-    slice_phase(card, args.seed, rows)
-    tta_phase(card, args.seed, tta_rows)
-    msseg2_phase(card, args.seed, ms_rows)
-    state_dict, batch_cf = train_phase(card, args.seed, grad_rows)
+    started = time.perf_counter()
+
+    def phase(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s (script "
+              f"{time.perf_counter() - started:.1f} s)", flush=True)
+        return out
+
+    rows = phase("kernels N=8", kernel_phase, device, half_batch, args.seed, card)
+    tta_rows = phase("kernels N=32", kernel_phase, device, TTA_BATCH, args.seed + 4, card)
+    # the affine TTA request's batch (affine_part, cli_hippo_serving): checked there too
+    phase("kernels N=128", check_classes, device, args.seed + 5, card, AFFINE_BATCH,
+          CONV_CLASSES)
+    phase("orientation grids", check_orientation_grids, device, args.seed, card)
+    grad_rows = phase("gradient kernels", grad_kernel_phase, device, half_batch, args.seed, card)
+    ms_rows = phase("msseg2 kernels", kernel_phase, device, 1, args.seed + 6, card,
+                    MS_CONV_CLASSES)
+    phase("msseg2 large class", check_classes, device, args.seed + 8, card, MS_LARGE_BATCH,
+          MS_LARGE_CLASSES)
+    ms_train_rows = phase(
+        "msseg2 train kernels",
+        lambda: kernel_phase(device, MS_TRAIN_BATCH, args.seed + 13, card, MS_CONV_CLASSES,
+                             timing=MS_TRAIN_TIMING)
+        + grad_kernel_phase(device, MS_TRAIN_BATCH, args.seed + 14, card, MS_CONV_CLASSES,
+                            MS_IN_CHANNELS, timing=MS_TRAIN_TIMING))
+    phase("slice", slice_phase, card, args.seed, rows)
+    phase("tta", tta_phase, card, args.seed, tta_rows)
+    phase("msseg2", msseg2_phase, card, args.seed, ms_rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("serving determinism", serving_determinism, card, args.seed, tmp)
+    state_dict, batch_cf = phase("train", train_phase, card, args.seed, grad_rows)
     ms_root = tempfile.mkdtemp(prefix="msseg2-")
     write_msseg2_dataset(ms_root, args.seed + 11)
-    ms_train_phase(card, args.seed, ms_train_rows, ms_root)
+    phase("msseg2-train", ms_train_phase, card, args.seed, ms_train_rows, ms_root)
     # the N=8 forward rows count the serving slice's launches: per step, a
     # forward's; the other rows count launches per step
     per_forward = {(*spatial, cin, cout): n for spatial, cin, cout, n in CONV_CLASSES}
@@ -3810,11 +4197,11 @@ def main() -> int:
     ms_totals(ms_rows, card)
     step_totals(f"per msseg2 train step (N={MS_TRAIN_BATCH})", ms_train_rows,
                 lambda row: row["launches"], card)
-    cpu_train_comparison(
-        card, "train f32 vs CPU port (first subject, dropout 0)",
-        lambda: NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS), lambda: Adam(lr=2e-4),
-        HybridLogisticDiceLoss(), state_dict, {k: v[:1] for k, v in batch_cf.items()},
-        sagittal_split=True)
+    phase("card against CPU", cpu_train_comparison,
+          card, "train f32 vs CPU port (first subject, dropout 0)",
+          lambda: NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS),
+          lambda: Adam(lr=2e-4), HybridLogisticDiceLoss(), state_dict, {k: v[:1] for k, v in batch_cf.items()},
+          sagittal_split=True)
     try:
         drop_contours = missing_render_packages()
         if drop_contours is not None:
@@ -3822,6 +4209,7 @@ def main() -> int:
                   f"{drop_contours}; the contour-image schedules are dropped from the "
                   f"dmri_hippo and msseg2 contexts, which train without them [{card}]",
                   flush=True)
+        drop = drop_contours is not None
         with tempfile.TemporaryDirectory() as tmp:
             root = os.path.join(tmp, "dmri_hippo")
             t0 = time.perf_counter()
@@ -3829,19 +4217,47 @@ def main() -> int:
             print(f"trainer: dmri_hippo dataset of {sum(HIPPO_SUBJECTS.values())} subjects on "
                   f"{'x'.join(map(str, ORIGINAL_GRID))} written in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-            trainer_phase(card, root, ms_root, tmp, drop_contours is not None)
-            fast_path_phase(card, args.seed, root, ms_root, tmp, drop_contours is not None)
-            cli_phase(card, args.seed, root, ms_root, tmp, drop_contours is not None)
-            qsm_rows = qsm_dwi_phase(card, args.seed, root, tmp, drop_contours is not None,
-                                     device)
-            cascade_rows = cascade_cleanup_phase(card, args.seed, root, ms_root, tmp,
-                                                 drop_contours is not None, device)
+            phase("trainer", trainer_phase, card, root, ms_root, tmp, drop)
+            phase("fast-path", fast_path_phase, card, args.seed, root, ms_root, tmp, drop)
+            phase("cli", cli_phase, card, args.seed, root, ms_root, tmp, drop)
+            qsm_rows = phase("qsm-dwi", qsm_dwi_phase, card, args.seed, root, tmp, drop, device)
+            cascade_rows = phase("cascade-cleanup", cascade_cleanup_phase, card, args.seed, root,
+                                 ms_root, tmp, drop, device)
     finally:
         shutil.rmtree(ms_root)
 
-    rows = [{key: value for key, value in row.items() if not key.startswith("_")}
+    return [{key: value for key, value in row.items() if not key.startswith("_")}
             for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows
             + cascade_rows]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--compare", nargs="+", metavar="CHECKOUT",
+                        help="only time msseg2 competition requests in each checkout given "
+                             "(compare_requests), e.g. parent . . parent")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+
+    card = card_line()
+    print(card, flush=True)
+    try:
+        if args.compare:
+            compare_requests(card, args.compare, args.seed)
+        else:
+            rows = run_phases(args, card)
+    finally:
+        leaks = stop_child_processes()
+        print(f"processes: forkserver and resource tracker stopped; {len(leaks)} other "
+              "processes left running at the end" + "".join(
+                  f"; killed {pid}: {line}" for pid, line in leaks), flush=True)
+    if leaks:
+        raise RuntimeError(f"{len(leaks)} processes were left running")
+    if args.compare:
+        return 0
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

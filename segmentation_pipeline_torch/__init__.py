@@ -18,36 +18,50 @@ sampling and the batched device augmentation derived from the declared
 pipeline: ``tpu_fast_path=True``); the dmri_hippo cascade (StochasticMatrix,
 refined predictions); the native connected-component labeller (native.py)
 and the device morphology, instance and confusion reductions (fused
-cleanup in PatchPredict, the trainer's device-reduced sweeps). The
+cleanup in PatchPredict, the trainer's device-reduced sweeps); affine TTA
+(EnsembleAffines), the loaders' process workers, the dataset fingerprint,
+the native NIfTI reader, and the tensorboard, image and wandb loggers. The
 configurations of dmri_hippo and msseg2 live in
 ``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
 and weight gradients run on hand-written CUDA kernels
 (csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
-from .core import Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti, write_nifti
+from .core import (Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti,
+                   slice_volume, write_nifti)
 from .criterions import HybridLogisticDiceLoss
 from .data.device_cache import DeviceDataCache
-from .data import (AnyFilter, AttributeLoader, ComposeFilters, ComposeLoaders, ForbidAttributes,
-                   ImageLoader, LabelSampler, NegateFilter, PatchDataLoader, PatchQueue,
-                   RandomFoldFilter, RandomSampler, RandomSelectFilter, RequireAttributes,
-                   SequentialSampler, StandardDataLoader, StratifiedFilter, SubjectFolder,
-                   TensorLoader, UniformSampler, WeightedSampler)
-from .evaluators import (ContourImageEvaluator, ImageRegionEvaluator,
+from .data import (AnyFilter, AttributeLoader, ComposeFilters, ComposeLoaders, DataLoaderFactory,
+                   ForbidAttributes, ImageLoader, LabelSampler, NegateFilter, PatchDataLoader,
+                   PatchQueue, RandomFoldFilter, RandomSampler, RandomSelectFilter,
+                   RequireAttributes, SequentialSampler, StandardDataLoader, StratifiedFilter,
+                   SubjectFilter, SubjectFolder, SubjectLoader, SubjectsLoader, TensorLoader,
+                   UniformSampler, WeightedSampler, get_dataset_fingerprint)
+from .evaluators import (ContourImageEvaluator, Evaluator, ImageRegionEvaluator,
                          InstanceSegmentationEvaluator, LabeledTensor, LabelMapEvaluator,
-                         SegmentationEvaluator)
-from .loggers import FileLogger, NonLogger
+                         SegmentationEvaluator, msseg_detection_test)
+from .loggers import FileLogger, Logger, NonLogger, WandbLogger
 from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, NestedResUNet,
                      StochasticMatrix, WSConv3d, flax_to_state_dict, state_dict_to_flax)
-from .models.ensemble import EnsembleFlips, EnsembleModels, EnsembleOrientations
+from .models.ensemble import (EnsembleAffines, EnsembleFlips, EnsembleModels,
+                              EnsembleOrientations)
 from .post_processing import (keep_components, remove_holes, remove_small_components,
                               sort_by_size, unsort_by_size)
-from .prediction import PatchPredict, Predictor, StandardPredict, add_evaluation_labels
-from .training import (SGD, Adam, MultiSteps, SegModel, collate_to_device, create_train_state,
+from .prediction import (PatchPredict, Predictor, StandardPredict, add_evaluation_labels,
+                         apply_stochastic_matrix)
+from .training import (SGD, Adam, Context, MultiSteps, Ref, SegModel, TorchContext, TrainState,
+                       collate_to_device, create_train_state, list_checkpoint_files,
                        make_train_step)
-from .training.context import Context, Ref, list_checkpoint_files
 from .training.trainer import ScheduledEvaluation, SegmentationTrainer
 from .transforms import *  # noqa: F401,F403
-from . import post_processing
+from .typing import PathLike
+from .utils.compact_json import CompactJSONEncoder
+from .utils.dataset_files import prepare_dataset_files
+from .utils.misc import (auto_str, filter_kwargs, flatten_nested_dict, no_op, random_folds,
+                         time_str_to_seconds)
+from .utils.nn_unet_convert import save_dataset_as_nn_unet
+from .utils.timer import Timer
+from .visualizations import vis_features, vis_model, vis_subject
+from . import native, ops, post_processing  # noqa: F401
 
 __version__ = "0.1.0"

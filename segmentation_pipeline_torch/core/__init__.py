@@ -1,7 +1,7 @@
 from .nifti import read_nifti, write_nifti
-from .subject import Image, LabelMap, ScalarImage, Subject, collate_subjects
+from .subject import Image, LabelMap, ScalarImage, Subject, collate_subjects, slice_volume
 
 __all__ = [
     "read_nifti", "write_nifti",
-    "Image", "LabelMap", "ScalarImage", "Subject", "collate_subjects",
+    "Image", "LabelMap", "ScalarImage", "Subject", "collate_subjects", "slice_volume",
 ]

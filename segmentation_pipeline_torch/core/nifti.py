@@ -1,7 +1,9 @@
 """Minimal, dependency-free NIfTI-1 reader/writer.
 
-A copy of segmentation_pipeline_tpu/core/nifti.py without its native C++
-fast path: numpy only. Supports .nii and .nii.gz,
+A copy of segmentation_pipeline_tpu/core/nifti.py. ``read_nifti`` reads the
+payload through the native reader (csrc/nifti_io.cpp, through
+native.nifti_read_raw_native: zlib in C with the GIL released) and keeps the
+numpy codec for the files that reader refuses. Supports .nii and .nii.gz,
 the standard scalar dtypes, scl_slope/scl_inter scaling, and sform/qform
 affines. Data convention matches torchio: arrays are returned channel-first
 (C, W, H, D); the NIfTI 4th dimension maps to C.
@@ -62,8 +64,20 @@ def read_nifti(path) -> Tuple[np.ndarray, np.ndarray]:
 
     data has shape (C, W, H, D) — channel-first like torchio — and affine is a
     float64 (4, 4) voxel->world matrix (RAS+ if the file says so).
+
+    The native reader inflates and copies the payload; numpy parses the
+    header, and reads the whole file where the reader refuses it (a
+    byte-swapped header, a short payload). Unlike the JAX package, which
+    falls back to numpy on any error of its native path, a reader that
+    does not build or load raises here with the compiler's log.
     """
-    raw = _read_bytes(path)
+    from ..native import nifti_read_raw_native
+
+    native = nifti_read_raw_native(path)
+    if native is not None:
+        raw, payload = native
+    else:
+        raw, payload = _read_bytes(path), None
     if len(raw) < HEADER_SIZE:
         raise ValueError(f"{path}: file too small to be NIfTI-1")
 
@@ -103,8 +117,11 @@ def read_nifti(path) -> Tuple[np.ndarray, np.ndarray]:
         dtype = dtype.newbyteorder(">")
 
     count = int(np.prod(shape))
-    offset = int(vox_offset) if vox_offset >= HEADER_SIZE else HEADER_SIZE
-    arr = np.frombuffer(raw, dtype=dtype, count=count, offset=offset)
+    if payload is not None:
+        arr = np.frombuffer(payload, dtype=dtype, count=count)
+    else:
+        offset = int(vox_offset) if vox_offset >= HEADER_SIZE else HEADER_SIZE
+        arr = np.frombuffer(raw, dtype=dtype, count=count, offset=offset)
     arr = arr.reshape(shape, order="F")
     if swap:
         arr = arr.astype(arr.dtype.newbyteorder("="))

@@ -1,3 +1,4 @@
+from .dataset_fingerprint import get_dataset_fingerprint
 from .loader import (DataLoaderFactory, LabelSampler, PatchDataLoader, PatchQueue, PatchSampler,
                      RandomSampler, SequentialSampler, StandardDataLoader, SubjectsLoader,
                      UniformSampler, WeightedSampler, extract_patch)
@@ -13,4 +14,5 @@ __all__ = ["DataLoaderFactory", "LabelSampler", "PatchDataLoader", "PatchQueue",
            "UniformSampler", "WeightedSampler", "extract_patch", "AnyFilter", "ComposeFilters",
            "ForbidAttributes", "NegateFilter", "RandomFoldFilter", "RandomSelectFilter",
            "RequireAttributes", "StratifiedFilter", "SubjectFilter", "SubjectFolder",
-           "AttributeLoader", "ComposeLoaders", "ImageLoader", "SubjectLoader", "TensorLoader"]
+           "AttributeLoader", "ComposeLoaders", "ImageLoader", "SubjectLoader", "TensorLoader",
+           "get_dataset_fingerprint"]

@@ -4,15 +4,20 @@ Ported from segmentation_pipeline_tpu/loggers/file_logger.py. ``setup``
 writes ``config.json`` and opens ``metrics.jsonl``; ``save_context`` takes
 the context's snapshot synchronously (host copies of every state, see
 training/context.py) and writes it on one worker thread while training goes
-on; ``log`` appends one JSON record and saves PIL images as PNG (PIL is
-imported there); ``close`` drains the pending save. The JAX package's
-TensorBoard mirror, orbax array storage and its synchronous-save and
-no-image options are not ported: no caller sets them.
+on (``async_saves=False`` writes it before returning); ``log`` appends one
+JSON record, saves PIL images as PNG unless ``save_images`` is False (PIL is
+imported there) and, with ``use_tensorboard``, mirrors every numeric field
+of the record as a tensorboardX scalar under ``<run>/tb`` (tensorboardX is
+imported in ``setup``; without it a warning says so and nothing is
+mirrored, as in the JAX package); ``close`` drains the pending save. The
+JAX package's orbax array storage needs JAX and is not ported.
 """
 from __future__ import annotations
 
 import json
 import math
+import numbers
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from pathlib import Path
@@ -20,6 +25,7 @@ from pathlib import Path
 import numpy as np
 
 from ..evaluators.labeled_tensor import LabeledTensor, Table
+from ..utils.misc import flatten_nested_dict
 from .logger import Logger
 
 
@@ -49,15 +55,20 @@ def _to_loggable(value):
 
 
 class FileLogger(Logger):
-    def __init__(self, logs_dir: str):
+    def __init__(self, logs_dir: str, use_tensorboard: bool = False, save_images: bool = True,
+                 async_saves: bool = True):
         self.logs_dir = logs_dir
+        self.use_tensorboard = use_tensorboard
+        self.save_images = save_images
         # checkpoint writes happen on a single worker thread: the state is
         # snapshotted to host synchronously and the pickle+disk write (the
         # slow part) overlaps with training
+        self.async_saves = async_saves
         self._save_executor = None
         self._pending_save = None
         self.run_dir = None
         self.metrics_file = None
+        self.tb_writer = None
         self.iteration = 0
 
     def setup(self, context):
@@ -67,11 +78,22 @@ class FileLogger(Logger):
         self.metrics_file = open(self.run_dir / "metrics.jsonl", "a")
         with open(self.run_dir / "config.json", "w") as f:
             json.dump(_to_loggable(context.get_config()), f, indent=2, default=str)
+        if self.use_tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError as error:
+                warnings.warn(f"FileLogger(use_tensorboard=True): {error}; the metrics go to "
+                              f"metrics.jsonl only")
+            else:
+                self.tb_writer = SummaryWriter(str(self.run_dir / "tb"))
 
     def save_context(self, context, folder: str, iteration: int):
         out_dir = self.run_dir / folder
         out_dir.mkdir(parents=True, exist_ok=True)
         path = out_dir / f"{context.name}-iter{iteration:08}.ckpt"
+        if not self.async_saves:
+            context.save(path)
+            return path
         if self._save_executor is None:
             self._save_executor = ThreadPoolExecutor(max_workers=1)
         if self._pending_save is not None:
@@ -111,12 +133,17 @@ class FileLogger(Logger):
         self.metrics_file.write(json.dumps(record, default=str) + "\n")
         self.metrics_file.flush()
 
-        if images:
+        if self.save_images and images:
             img_dir = self.run_dir / "images"
             img_dir.mkdir(exist_ok=True)
             for name, img in images.items():
                 safe = name.replace("/", "_")
                 img.save(img_dir / f"{safe}-iter{self.iteration:08}.png")
+
+        if self.tb_writer is not None:
+            for key, value in flatten_nested_dict(record).items():
+                if isinstance(value, numbers.Number):
+                    self.tb_writer.add_scalar(key, value, self.iteration)
 
         self.iteration += 1
 
@@ -130,6 +157,9 @@ class FileLogger(Logger):
         if self.metrics_file is not None:
             self.metrics_file.close()
             self.metrics_file = None
+        if self.tb_writer is not None:
+            self.tb_writer.close()
+            self.tb_writer = None
 
     def __del__(self):
         try:

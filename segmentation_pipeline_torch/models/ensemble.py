@@ -3,7 +3,9 @@ segmentation_pipeline_tpu/models/ensemble.py: ``EnsembleModels`` (e.g. CV
 folds), ``EnsembleFlips`` (all 2^k flip combinations of the chosen spatial
 dims) and ``EnsembleOrientations`` (6 permutations x 8 flips = 48
 orientations), callables over channel-first (N, C, W, H, D) tensors that
-wrap any model callable (SegModel, another ensemble, ...). Members run on
+wrap any model callable (SegModel, another ensemble, ...), and
+``EnsembleAffines`` (K random rotation and scale warps, each undone on the
+probabilities, voting under each member's validity mask). Members run on
 the device that ``x`` is on; nothing goes to the host.
 
 Two execution modes:
@@ -14,8 +16,8 @@ Two execution modes:
   In eval mode BatchNorm uses its running statistics and dropout is off, so
   folding changes no sample's arithmetic: the result is the unrolled one.
 
-The JAX package's ``mesh=`` (sharding the folded batch over devices) and
-``EnsembleAffines`` are not ported yet.
+The JAX package's ``mesh=`` (sharding the folded batch over devices) is
+not ported yet (ROADMAP item 10a): ``EnsembleAffines(mesh=...)`` raises.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops.augment import _affine_coords_oob, _sample, draw_affine_matrix
 
 
 def parse_strategy(strategy: str) -> str:
@@ -115,6 +119,83 @@ class EnsembleFlips:
 
     def __call__(self, x):
         return apply_strategy(self._members(torch.as_tensor(x)), self.strategy)
+
+
+class EnsembleAffines:
+    """TTA over K random affine warps (rotation and scale about the volume
+    centre): warp the input, run the model, warp the probabilities back by
+    the inverse matrix, and combine under a per-voxel validity mask, so
+    voxels the inverse warp pulls from outside a member's grid do not vote.
+
+    Member 0 is the identity when ``include_identity`` (the default), so
+    every voxel has a valid vote. The matrices are drawn once, at
+    construction, from a ``torch.Generator`` seeded with ``seed``, and kept
+    in ``matrices`` (3x3 float32 numpy arrays). JAX's ``fold_in`` stream
+    cannot be reproduced here, so the same ``seed`` draws other matrices
+    than the JAX package; set ``matrices`` to reuse a given set.
+    ``batched=True`` folds the K members into the batch and runs one
+    forward. Out-of-bounds input voxels take ``pad_value``."""
+
+    def __init__(self, model, num_members: int = 4, scales: float = 0.1,
+                 degrees: float = 10.0, strategy: str = "mean", seed: int = 0,
+                 include_identity: bool = True, pad_value: float = 0.0,
+                 batched: bool = False, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "EnsembleAffines(mesh=...) shards the folded batch over devices, which the "
+                "PyTorch port does not do yet: ROADMAP Queue 1 item 10a (multi-device)")
+        self.model = model
+        self.strategy = parse_strategy(strategy)
+        self.pad_value = float(pad_value)
+        self.batched = batched
+        matrices = [np.eye(3, dtype=np.float32)] if include_identity else []
+        if num_members > len(matrices):
+            drawn = draw_affine_matrix(torch.Generator().manual_seed(seed),
+                                       num_members - len(matrices), scales=scales,
+                                       degrees=degrees)
+            matrices += [a.numpy().astype(np.float32) for a in drawn]
+        self.matrices = matrices
+
+    def _coords(self, spatial, device):
+        """Per member, None for the identity, else (forward coords, forward
+        out-of-bounds mask, inverse coords, inverse out-of-bounds mask)."""
+        out = []
+        for A in self.matrices:
+            if np.allclose(A, np.eye(3)):
+                out.append(None)
+                continue
+            cf, of = _affine_coords_oob(torch.tensor(A, device=device)[None], spatial)
+            ci, oi = _affine_coords_oob(torch.tensor(np.linalg.inv(A), device=device)[None],
+                                        spatial)
+            out.append((cf, of[0], ci, oi[0]))
+        return out
+
+    def _warp_in(self, x, cf, of):
+        """(N, C, W, H, D) warped by the member's forward coords, the pad
+        out of bounds."""
+        x_cl = x.movedim(1, -1)
+        warped = _sample(x_cl, cf.expand(x.shape[0], *cf.shape[1:]))
+        return torch.where(of[..., None], self.pad_value, warped).movedim(-1, 1)
+
+    @staticmethod
+    def _warp_back(y, ci):
+        y_cl = y.movedim(1, -1)
+        return _sample(y_cl, ci.expand(y.shape[0], *ci.shape[1:])).movedim(-1, 1)
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        coords = self._coords(tuple(x.shape[2:]), x.device)
+        ones = torch.ones(x.shape[2:], dtype=torch.bool, device=x.device)
+        warp = lambda c: x if c is None else self._warp_in(x, c[0], c[1])  # noqa: E731
+        if self.batched:
+            n = x.shape[0]
+            y_all = self.model(torch.cat([warp(c) for c in coords], dim=0))
+            outputs = [y_all[i * n:(i + 1) * n] for i in range(len(coords))]
+        else:
+            outputs = [self.model(warp(c)) for c in coords]
+        preds = [y if c is None else self._warp_back(y, c[2]) for y, c in zip(outputs, coords)]
+        masks = [ones if c is None else ~c[3] for c in coords]
+        return apply_strategy_masked(preds, masks, self.strategy)
 
 
 class EnsembleOrientations:

@@ -1,11 +1,11 @@
-"""ctypes bindings of the port's native labeller (csrc/ccl.cpp), the
-counterpart of segmentation_pipeline_tpu/native/__init__.py without its
-NIfTI reader.
+"""ctypes bindings of the port's native host code, the counterpart of
+segmentation_pipeline_tpu/native/__init__.py: the labeller (csrc/ccl.cpp)
+and the NIfTI reader (csrc/nifti_io.cpp, linked with zlib).
 
-The library (with its ``component_counts`` entry, typed but unwrapped as
-in the JAX package) is built by g++ at first use into build/torch_kernels/
-(ops/build.py::load_host). A failed build raises with the compiler's log;
-nothing falls back to another implementation.
+Each library (the labeller's with its ``component_counts`` entry, typed but
+unwrapped as in the JAX package) is built by g++ at first use into
+build/torch_kernels/ (ops/build.py::load_host). A failed build raises with
+the compiler's log; nothing falls back to another implementation.
 
 - ``connected_components_native``: foreground components of a 3-D mask at
   connectivity 1, 2 or 3 (6/18/26 neighbours), numbered 1..N by first
@@ -14,20 +14,25 @@ nothing falls back to another implementation.
   its centre.
 - ``confusion_joint_hist_native``: the (L+1) x (L+1) joint histogram of
   two label maps through a value LUT.
+- ``nifti_read_raw_native``: a NIfTI-1 file's header bytes and raw voxel
+  payload, inflated and copied in C with the GIL released, or None for a
+  file the reader refuses (core/nifti.py then reads it with numpy).
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .ops import build
 
 SOURCE = "ccl.cpp"
+NIFTI_SOURCE = "nifti_io.cpp"
 _LOCK = threading.Lock()
 _LIB = None
+_NIFTI_LIB = None
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -99,3 +104,42 @@ def confusion_joint_hist_native(target: np.ndarray, pred: np.ndarray, lut: np.nd
                                    ctypes.c_int64(lut.size), ctypes.c_int32(L),
                                    _ptr(counts, ctypes.c_int64))
     return counts.reshape(L + 1, L + 1)
+
+
+def nifti_library() -> ctypes.CDLL:
+    """The NIfTI reader's library, built and typed on first call."""
+    global _NIFTI_LIB
+    with _LOCK:
+        if _NIFTI_LIB is None:
+            lib = build.load_host(NIFTI_SOURCE, libs=("-lz",))
+            lib.nifti_read_header.restype = ctypes.c_int
+            lib.nifti_read_header.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_double),
+                                              ctypes.POINTER(ctypes.c_uint8)]
+            lib.nifti_read_payload.restype = ctypes.c_int64
+            lib.nifti_read_payload.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+                                               ctypes.c_int64]
+            _NIFTI_LIB = lib
+        return _NIFTI_LIB
+
+
+def nifti_read_raw_native(path) -> Optional[Tuple[bytes, np.ndarray]]:
+    """(the first 352 bytes of the header, the raw voxel payload as uint8)
+    of the NIfTI-1 file ``path``; None when the reader refuses the file (it
+    cannot be opened, it is not a little-endian NIfTI-1 file, or its
+    payload is short), which core/nifti.py then reads with numpy."""
+    lib = nifti_library()
+    encoded = str(path).encode()
+    header = np.zeros(16, dtype=np.float64)
+    raw352 = np.zeros(352, dtype=np.uint8)
+    if lib.nifti_read_header(encoded, _ptr(header, ctypes.c_double),
+                             _ptr(raw352, ctypes.c_uint8)) != 0:
+        return None
+    ndim = int(header[0])
+    count = 1
+    for d in header[1:1 + max(ndim, 3)]:
+        count *= max(int(d), 1)
+    n_bytes = count * (int(header[9]) // 8)
+    payload = np.empty(n_bytes, dtype=np.uint8)
+    if lib.nifti_read_payload(encoded, _ptr(payload, ctypes.c_uint8), n_bytes) != n_bytes:
+        return None
+    return raw352.tobytes(), payload

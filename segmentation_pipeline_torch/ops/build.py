@@ -2,7 +2,8 @@
 
 Each CUDA source in ``segmentation_pipeline_torch/csrc`` is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface; the
-host C++ source (``ccl.cpp``, the connected-component labeller) by ``g++``
+host C++ sources (``ccl.cpp``, the connected-component labeller;
+``nifti_io.cpp``, the NIfTI reader, linked with zlib) by ``g++``
 (``load_host``). Libraries go under ``build/torch_kernels/`` at the root of
 the checkout (git-ignored), named by a hash of their source and flags, so an
 edited source rebuilds and an unchanged one is reused. Each is written to a
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -88,21 +89,24 @@ def _cxx() -> str:
         found = shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no C++ compiler (g++) found: the native labeller cannot be built")
+    raise RuntimeError("no C++ compiler (g++) found: the native host code cannot be built")
 
 
-def load_host(source: str) -> ctypes.CDLL:
+def load_host(source: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded host library of the C++ ``source``, built by g++ first if
-    needed. A failed build raises with the compiler's output."""
+    needed and linked with ``libs`` (flags after the source, such as
+    ``-lz``; part of the library's name). A failed build raises with the
+    compiler's output."""
     lib = _libraries.get(source)
     if lib is not None:
         return lib
-    target = _library_path(source, CXX_FLAGS)
+    libs = list(libs)
+    target = _library_path(source, CXX_FLAGS + libs)
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(CSRC / source)],
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(CSRC / source), *libs],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         build_logs[source] = proc.stdout
         if proc.returncode != 0:

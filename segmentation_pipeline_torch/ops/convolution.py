@@ -10,14 +10,28 @@ convs (``conv_transpose3d``) go to ``F.conv_transpose3d``.
 cuDNN runs float32 convs in TF32 while ``torch.backends.cudnn.allow_tf32``
 is True, PyTorch's default, about 1e-3 away from float32. Every library
 conv issued here, forward and both gradients, runs with it off
-(``_LibraryConv`` under ``_f32_convs``), so float32 stays float32 whatever
-the caller's global flags say.
+(``_LibraryConv`` under ``_library_flags``), so float32 stays float32
+whatever the caller's global flags say. Where no gradient is recorded
+(serving, validation sweeps) the answer is the same bits on every call, as
+the JAX package's is, and every library conv runs under
+``torch.backends.cudnn.deterministic``. cuDNN's default float32 algorithm
+for msseg2's transposed convs sums in a varying order (the same request
+gave probabilities up to 4.2e-7 apart from call to call on an H100), and
+its deterministic one took 2.3 times as long per request there; so a
+float32 transposed conv runs as one forward conv whose output channels
+are the output phases' (``transposed_by_phases``), whose request came
+within 1% of cuDNN's default there (medians of 10). In bfloat16 cuDNN's
+deterministic transposed conv was as fast as its default, and the grouped
+conv slower.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,26 +45,30 @@ def _triple(v) -> Tuple[int, int, int]:
 
 
 @contextlib.contextmanager
-def _f32_convs():
-    """cuDNN with TF32 off inside the block; the caller's setting after it."""
-    previous = torch.backends.cudnn.allow_tf32
+def _library_flags(deterministic: bool):
+    """cuDNN with TF32 off inside the block, and held to deterministic
+    algorithms where ``deterministic``; the caller's settings after it."""
+    previous = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic or previous[1]
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = previous
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = previous
 
 
 class _LibraryConv(torch.autograd.Function):
     """``F.conv3d`` (or ``F.conv_transpose3d``) on (N, C, W, H, D) tensors
     with TF32 off in the forward and in the backward: autograd's own
-    backward would run under the global flag of the moment it runs."""
+    backward would run under the global flag of the moment it runs. The
+    forward is deterministic where ``deterministic`` (no gradient is
+    recorded)."""
 
     @staticmethod
-    def forward(ctx, x, weight, stride, padding, output_padding, transposed):
+    def forward(ctx, x, weight, stride, padding, output_padding, transposed, deterministic):
         ctx.save_for_backward(x, weight)
         ctx.conv = (stride, padding, output_padding, transposed)
-        with _f32_convs():
+        with _library_flags(deterministic):
             if transposed:
                 return F.conv_transpose3d(x, weight, stride=stride, padding=padding,
                                           output_padding=output_padding)
@@ -60,11 +78,11 @@ class _LibraryConv(torch.autograd.Function):
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
         stride, padding, output_padding, transposed = ctx.conv
-        with _f32_convs():
+        with _library_flags(False):
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 grad, x, weight, None, stride, padding, (1, 1, 1), transposed,
                 output_padding, 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def conv3d(x: torch.Tensor, kernel: torch.Tensor,
@@ -81,7 +99,7 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor,
             and padding == (1, 1, 1):
         return Conv3x3S1P1.apply(x.contiguous(), kernel.contiguous())
     y = _LibraryConv.apply(x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2),
-                           stride, padding, (0, 0, 0), False)
+                           stride, padding, (0, 0, 0), False, not torch.is_grad_enabled())
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -94,11 +112,86 @@ def conv_transpose3d(x: torch.Tensor, kernel: torch.Tensor,
     x: (N, W, H, D, Cin); kernel: (kw, kh, kd, Cin, Cout) in forward
     orientation, as the JAX package's (its input-dilated conv with the
     flipped kernel is torch's transposed conv with the weight
-    ``kernel.permute(3, 4, 0, 1, 2)``). The output has x's dtype.
+    ``kernel.permute(3, 4, 0, 1, 2)``). The output has x's dtype. Where no
+    gradient is recorded it sums in a fixed order: in float32 as one forward
+    conv by output phase (``transposed_by_phases``), in bfloat16 on cuDNN's
+    deterministic transposed conv.
     """
-    y = _LibraryConv.apply(x.permute(0, 4, 1, 2, 3), kernel.permute(3, 4, 0, 1, 2),
-                           _triple(stride), _triple(padding), _triple(output_padding), True)
+    x_cf, weight = x.permute(0, 4, 1, 2, 3), kernel.permute(3, 4, 0, 1, 2)
+    conv = (_triple(stride), _triple(padding), _triple(output_padding))
+    if torch.is_grad_enabled():
+        y = _LibraryConv.apply(x_cf, weight, *conv, True, False)
+    elif x.dtype == torch.float32:
+        with _library_flags(True):
+            y = transposed_by_phases(x_cf, weight, *conv)
+    else:
+        y = _LibraryConv.apply(x_cf, weight, *conv, True, True)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def _phase_taps(k: int, s: int, p: int, q: int):
+    """Along one axis, the taps t of the outputs o = s*m + q of a transposed
+    conv (kernel k, stride s, padding p) and their input offsets d:
+    out[s*m + q] = sum over t of x[m + d] w[t], d = (q + p - t) / s; sorted
+    by offset."""
+    taps = sorted((t for t in range(k) if (q + p - t) % s == 0), key=lambda t: -t)
+    return taps, [(q + p - t) // s for t in taps]
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_layout(k: Tuple[int, ...], stride: Tuple[int, ...], padding: Tuple[int, ...]):
+    """The grouped kernel's layout for ``transposed_by_phases``: the lowest
+    and highest input offset per axis, and for each output phase and cell
+    of the common window the flat index (over the k^3 taps) of the tap it
+    holds, or k^3, the zero appended after them, where no tap reaches."""
+    axes = [[_phase_taps(kk, s, p, q) for q in range(s)]
+            for kk, s, p in zip(k, stride, padding)]
+    lows = tuple(min((o[0] for _, o in phases if o), default=0) for phases in axes)
+    highs = tuple(max((o[-1] for _, o in phases if o), default=0) for phases in axes)
+    phases = list(itertools.product(*(range(s) for s in stride)))
+    index = np.full((len(phases), *(h - lo + 1 for lo, h in zip(lows, highs))),
+                    int(np.prod(k)), dtype=np.int64)
+    for i, q in enumerate(phases):
+        per_axis = [axis[qq] for axis, qq in zip(axes, q)]
+        for (tw, dw), (th, dh), (td, dd) in itertools.product(*(zip(*t) for t in per_axis)):
+            index[i, dw - lows[0], dh - lows[1], dd - lows[2]] = (tw * k[1] + th) * k[2] + td
+    return lows, highs, index
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_index(k, stride, padding, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_phase_layout(k, stride, padding)[2]).to(device)
+
+
+def transposed_by_phases(x: torch.Tensor, weight: torch.Tensor, stride, padding,
+                         output_padding) -> torch.Tensor:
+    """``F.conv_transpose3d(x, weight, ...)`` on (N, Cin, W, H, D) with
+    torch's (Cin, Cout, kw, kh, kd) weight, computed as one forward conv over
+    the input grid with s^3 * Cout outputs, one group of Cout per output
+    phase (the outputs of one residue modulo the stride on each axis): each
+    group's kernel holds the taps that reach its phase, at their input
+    offsets, and zeros elsewhere in the common window (one gather from the
+    cached layout). Interleaving the groups gives the transposed conv. The
+    products are its products (and zeros); cuDNN's forward algorithms sum
+    them in a fixed order, where its transposed-conv algorithms may not."""
+    n, _, *size = x.shape
+    cin, cout, *k = weight.shape
+    k, stride, padding = tuple(k), tuple(stride), tuple(padding)
+    out_size = [(i - 1) * s - 2 * p + kk + op for i, s, p, kk, op
+                in zip(size, stride, padding, k, output_padding)]
+    lows, highs, _ = _phase_layout(k, stride, padding)
+    index = _phase_index(k, stride, padding, weight.device)
+    taps = F.pad(weight.reshape(cin, cout, -1), (0, 1))  # the zero tap last
+    kernel = taps[:, :, index].permute(2, 1, 0, 3, 4, 5).reshape(-1, cin, *index.shape[1:])
+    rows = [-(-o // s) for o, s in zip(out_size, stride)]  # outputs of phase 0
+    pads = []
+    for lo, h, m, length in zip(reversed(lows), reversed(highs), reversed(rows),
+                                reversed(size)):
+        pads += [-lo, m - 1 + h - (length - 1)]
+    y = F.conv3d(F.pad(x, pads) if any(pads) else x, kernel)
+    y = y.view(n, *stride, cout, *rows).permute(0, 4, 5, 1, 6, 2, 7, 3)
+    y = y.reshape(n, cout, *(m * s for m, s in zip(rows, stride)))
+    return y[:, :, :out_size[0], :out_size[1], :out_size[2]]
 
 
 def avg_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:

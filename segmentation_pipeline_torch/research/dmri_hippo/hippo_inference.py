@@ -1,7 +1,7 @@
 """dmri_hippo inference CLI: checkpoints -> predictions on the scanner grid.
 
 Ported from research/dmri_hippo/hippo_inference.py: loads one or more
-context checkpoints (fold ensemble and/or flip TTA), predicts, inverts the
+context checkpoints (fold ensemble, flip and/or affine TTA), predicts, inverts the
 whole history tape back to the original scanner grid, post-processes (hole
 removal and component keeping), and saves NIfTIs, a report and a settings
 JSON, with the JAX CLI's arguments, defaults, file names and contents. It
@@ -10,10 +10,11 @@ CPU.
 
     python -m segmentation_pipeline_torch.research.dmri_hippo.hippo_inference \
         <ensemble_dir> <dataset> <run_name> [--ensemble-flips] [--ensemble-folds] \
-        [--batched-tta] [--bf16] [--cohort X] [--out-folder OUT] [--device cpu]
+        [--ensemble-affines N] [--batched-tta] [--bf16] [--cohort X] [--out-folder OUT] \
+        [--device cpu]
 
-``--tta-mesh`` and ``--ensemble-affines N>0`` raise before any work, naming
-the ROADMAP item that brings them.
+``--tta-mesh`` raises before any work, naming the ROADMAP item that brings
+it.
 """
 import argparse
 import json
@@ -22,7 +23,7 @@ from pathlib import Path
 import numpy as np
 
 from ...core.subject import Subject
-from ...models.ensemble import EnsembleFlips, EnsembleModels
+from ...models.ensemble import EnsembleAffines, EnsembleFlips, EnsembleModels
 from ...post_processing import keep_components, remove_holes
 from ...training.context import Context, list_checkpoint_files
 from ...training.trainer import _not_ported
@@ -92,9 +93,10 @@ def post_process_subjects(subjects, image_name):
 
 
 def load_contexts(ensemble_path, dataset_path, ensemble_flips=False, batched_tta=False,
-                  bf16=False, device=None):
+                  bf16=False, device=None, ensemble_affines=0):
     """One context per checkpoint file, with its model, trainer and
-    dataset, the model wrapped in flip TTA when asked."""
+    dataset, the model wrapped in flip TTA and then in affine TTA of
+    ``ensemble_affines`` members when asked."""
     contexts = []
     for file_path in list_checkpoint_files(Path(ensemble_path)):
         context = Context(device, file_path=file_path,
@@ -107,6 +109,11 @@ def load_contexts(ensemble_path, dataset_path, ensemble_flips=False, batched_tta
         if ensemble_flips:
             context.model = EnsembleFlips(context.model, strategy="majority",
                                           spatial_dims=(3, 4), batched=batched_tta)
+        if ensemble_affines:
+            # composes with flip TTA when both are asked for
+            context.model = EnsembleAffines(context.model, num_members=ensemble_affines,
+                                            scales=0.1, degrees=10, strategy="majority",
+                                            batched=batched_tta)
         contexts.append(context)
     return contexts
 
@@ -117,8 +124,6 @@ def main(ensemble_path, dataset_path, run_name, output_filename=None, out_folder
          bf16=False, device=None):
     if tta_mesh:
         raise _not_ported("--tta-mesh (flip TTA sharded over devices)", "item 10 (multi-device)")
-    if ensemble_affines:
-        raise _not_ported("--ensemble-affines (EnsembleAffines)", "item 4 (EnsembleAffines)")
     input_args = dict(ensemble_path=str(ensemble_path), dataset_path=str(dataset_path),
                       run_name=run_name, output_filename=output_filename,
                       out_folder=str(out_folder), ensemble_flips=ensemble_flips,
@@ -128,7 +133,7 @@ def main(ensemble_path, dataset_path, run_name, output_filename=None, out_folder
                       ensemble_affines=ensemble_affines, bf16=bf16)
 
     contexts = load_contexts(ensemble_path, dataset_path, ensemble_flips, batched_tta, bf16,
-                             device)
+                             device, ensemble_affines)
     print("Loaded models.")
 
     if ensemble_folds:
@@ -179,7 +184,7 @@ def build_parser():
     parser.add_argument("--ensemble-flips", action="store_true")
     parser.add_argument("--ensemble-folds", action="store_true")
     parser.add_argument("--ensemble-affines", type=int, default=0,
-                        help="affine-TTA member count (0 = off; not ported yet)")
+                        help="affine-TTA member count (0 = off)")
     parser.add_argument("--cohort", default=None)
     parser.add_argument("--num-workers", type=int, default=0)
     parser.add_argument("--batch-size", type=int, default=4)

@@ -192,6 +192,14 @@ class Context:
         self.component_definitions = [
             d for d in self.component_definitions if d["name"] in names]
 
+    def remove_components(self, names):
+        self._enforce_not_loaded()
+        self.component_definitions = [
+            d for d in self.component_definitions if d["name"] not in names]
+
+    def remove_component(self, name):
+        self.remove_components([name])
+
     # ---- initialization ------------------------------------------------
     def init_components(self):
         self._enforce_not_loaded()
@@ -324,3 +332,7 @@ class Context:
             out += f"\ncomponent_id={i}\n"
             out += f"component_definition={pformat(filtered, 4)}\n"
         return out
+
+
+# the name the JAX package (and the library it was modelled on) also exports
+TorchContext = Context

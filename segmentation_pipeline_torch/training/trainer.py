@@ -26,7 +26,8 @@ step, then the evaluators. One-hot labels ship as uint8 class ids and expand
 on the device; under bfloat16 the input is cast on the host first. Both go
 through pinned memory without blocking the host, so the next batch uploads
 while the step runs. On iterations with nothing scheduled the loss values
-are read one iteration late, from a copy that waits only for their own step.
+are read one iteration late, from a copy that waits only for their own step
+(``defer_metric_fetch=False`` reads them every iteration).
 Dropout, device patch sampling and device augmentation draw from one
 ``torch.Generator`` on the model's device, seeded from the iteration the
 run starts at.
@@ -45,6 +46,7 @@ import sys
 import threading
 import time
 import traceback
+import warnings
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -174,6 +176,7 @@ class SegmentationTrainer:
                  spatial_axis: Optional[str] = None,
                  compute_dtype: Optional[str] = None,
                  device_cache: bool = False,
+                 defer_metric_fetch: bool = True,
                  device_confusion: Optional[bool] = None):
         if isinstance(device_augmentation, str) and device_augmentation != "auto":
             raise ValueError(
@@ -208,6 +211,11 @@ class SegmentationTrainer:
         # deterministic) and uploaded; batches become gathers, or patch
         # draws, on the device (data/device_cache.py)
         self.device_cache = device_cache
+        # True: an iteration with no scheduled evaluator, checkpoint or
+        # scoring reads its loss values one iteration late, so the fetch
+        # overlaps the next step (the values are the same); False: every
+        # iteration reads them before the next one starts
+        self.defer_metric_fetch = defer_metric_fetch
         # None/True: a sweep that only needs counts is reduced on the device
         # once the probe sweep has matched the host chain; False: the host
         # path always
@@ -264,11 +272,16 @@ class SegmentationTrainer:
     def train(self, context, max_iterations: int = None,
               max_training_time: Optional[Union[int, str]] = None,
               preload_training_data: bool = False,
+              pretransform_training_data: bool = False,
               preload_validation_data: bool = False,
               num_workers: int = 0, validation_batch_size: int = 16,
               logger: Logger = None, force_continue: bool = False):
         """Train until ``max_iterations``, the time budget, early stopping
-        or a stop signal. ``force_continue`` forgets the best score so far,
+        or a stop signal. ``pretransform_training_data`` runs the training
+        pipeline once over the loaded subjects before the first iteration,
+        so each batch is only copied and collated (a stochastic transform
+        then keeps its one draw, which a warning says; pair it with
+        ``device_augmentation``). ``force_continue`` forgets the best score so far,
         so a run that early stopping ended trains on; the optimizer's live
         state (moments, an accumulation's counters and gradients) carries
         over from a previous call in the process, as in the JAX package."""
@@ -313,11 +326,22 @@ class SegmentationTrainer:
                     "device pipeline (training/auto_augment.py), or "
                     "strip them from the cohort transform explicitly.")
 
-        if preload_training_data:
+        if preload_training_data or pretransform_training_data:
             t = time.time()
             print("Preloading training data...")
-            training_dataset.preload_subjects()
-            print(f"Done. Took {round(time.time() - t, 2)}s")
+            if pretransform_training_data:
+                from .auto_augment import contains_random
+
+                if contains_random(training_dataset.transform):
+                    warnings.warn(
+                        "pretransform_training_data=True freezes the stochastic transforms in "
+                        "the training pipeline into a single draw. Pass "
+                        "device_augmentation='auto' to keep augmenting per step on the device.")
+                training_dataset.preload_and_transform_subjects()
+            else:
+                training_dataset.preload_subjects()
+            phases["preload_train_s"] = round(time.time() - t, 2)
+            print(f"Done. Took {phases['preload_train_s']}s")
 
         for scheduled in self.validation_evaluators:
             if scheduled.cohorts is None and scheduled.subjects is None:
@@ -486,7 +510,8 @@ class SegmentationTrainer:
                 # late (the values are identical; only when the host reads
                 # them changes)
                 busy = (
-                    bool(scheduled_train)
+                    not self.defer_metric_fetch
+                    or bool(scheduled_train)
                     or bool(scheduled_validation)
                     or self.iteration % self.save_rate == 0
                     or (self.scoring_function is not None

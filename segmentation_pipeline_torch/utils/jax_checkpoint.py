@@ -28,7 +28,9 @@ it names onto the port:
   the same mapping and stored again.
 
 Anything that cannot be read without JAX (a class of jax, flax or orbax, a
-closure over one of them) raises ``JaxCheckpointError`` naming it.
+closure over one of them) raises ``JaxCheckpointError`` naming it; a
+checkpoint whose arrays JAX kept in an orbax store raises and says how to
+re-save it as a pickle.
 """
 from __future__ import annotations
 
@@ -66,10 +68,7 @@ OPTAX_STATES = {"ScaleByAdamState": ("count", "mu", "nu"), "TraceState": ("trace
 
 # attributes of JAX objects that the port's objects lack, by class name:
 # the value the port implements, and the ROADMAP item that brings others
-_PROCESSES = (False, "item 7-rem (process workers)")
 _JAX_ONLY = {
-    "StandardDataLoader": {"use_processes": _PROCESSES},
-    "PatchDataLoader": {"use_processes": _PROCESSES},
     "PatchPredict": {"mesh": (None, "item 10 (multi-device)"),
                      "volume_sharded": (False, "item 10 (multi-device)")},
 }
@@ -252,7 +251,11 @@ def convert_checkpoint_data(data: bytes) -> dict:
     """A JAX checkpoint's bytes -> the port's checkpoint payload."""
     checkpoint = _load(data)
     if checkpoint.get("array_storage") == "orbax":
-        raise _not_ported("array_storage='orbax' checkpoints", "item 8-rem")
+        raise NotImplementedError(
+            "this checkpoint keeps its arrays in an orbax store (array_storage='orbax'), "
+            "which only JAX reads, and the port stays without it by design: re-save it with "
+            "JAX, context.save(path, array_storage=\"pickle\") (or "
+            "FileLogger(array_storage=\"pickle\")), and convert that file")
     definitions = checkpoint["component_definitions"]
     for definition in definitions:
         _fix_objects(definition["params"])

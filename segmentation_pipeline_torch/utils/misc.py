@@ -1,7 +1,14 @@
 """Small helpers copied from segmentation_pipeline_tpu/utils/misc.py."""
 from __future__ import annotations
 
+import inspect
 import random
+from typing import Any, Dict
+
+
+def no_op(batch):
+    """Identity collate: a batch is a list of Subjects."""
+    return batch
 
 
 def is_sequence(x) -> bool:
@@ -27,6 +34,18 @@ def vargs_or_sequence(args):
     if len(args) == 1 and is_sequence(args[0]):
         return list(args[0])
     return list(args)
+
+
+def flatten_nested_dict(nested: Dict, prefix: str = "", sep: str = ".") -> Dict[str, Any]:
+    """Flattens {'a': {'b': 1}} -> {'a.b': 1}."""
+    out = {}
+    for key, value in nested.items():
+        full_key = f"{prefix}{sep}{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            out.update(flatten_nested_dict(value, full_key, sep))
+        else:
+            out[full_key] = value
+    return out
 
 
 def auto_str(obj) -> str:
@@ -58,3 +77,12 @@ def time_str_to_seconds(time_str) -> float:
     for p in parts:
         seconds = seconds * 60 + p
     return days * 86400 + seconds
+
+
+def filter_kwargs(cls_or_fn, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """Keep only the kwargs the callable's signature accepts (all of them
+    when it takes **kwargs)."""
+    sig = inspect.signature(cls_or_fn)
+    if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values()):
+        return dict(kwargs)
+    return {k: v for k, v in kwargs.items() if k in sig.parameters}

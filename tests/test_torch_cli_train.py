@@ -9,6 +9,7 @@ any work is done, and the flags whose items were ported since
 (--device-postprocess, cascade_experiment) run."""
 import argparse
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -155,8 +156,7 @@ def _run_args(command, *extra):
 
 @pytest.mark.parametrize("call, item", [
     (lambda: hippo_inference.main(MISSING, MISSING, "r", tta_mesh=True), "item 10"),
-    (lambda: hippo_inference.main(MISSING, MISSING, "r", ensemble_affines=2), "item 4"),
-], ids=["tta-mesh", "ensemble-affines"])
+], ids=["tta-mesh"])
 def test_unported_flags_raise_naming_their_item(call, item):
     """Each raises before it reads anything: the paths do not exist."""
     with pytest.raises(NotImplementedError, match=item):
@@ -183,7 +183,7 @@ def _masks(folder):
 
 
 @pytest.mark.parametrize("case", ["device-postprocess", "inference-device-postprocess",
-                                  "cascade"])
+                                  "cascade", "ensemble-affines"])
 def test_lifted_flags_run(case, msseg2_checkpoint, hippo_root, small_hippo, tmp_path,
                           monkeypatch, capsys):
     """The flags that raised until their items were ported. ms_inference
@@ -192,7 +192,10 @@ def test_lifted_flags_run(case, msseg2_checkpoint, hippo_root, small_hippo, tmp_
     --device-argmax's. inference() with device_postprocess on a tape of
     ConcatenateImages alone takes the fused path, against the host chain.
     cascade_experiment trains the cascade context two iterations on
-    priors, and its checkpoints reload with the refined predictors."""
+    priors, and its checkpoints reload with the refined predictors.
+    hippo_inference --ensemble-affines 2 --ensemble-flips --batched-tta,
+    as parsed from its command line, serves labels on the scanner grid
+    through affine TTA wrapped around flip TTA."""
     if case == "device-postprocess":
         root, ckpt = msseg2_checkpoint
         monkeypatch.setattr(ms_inference, "PATCH_SIZE", 16)
@@ -218,6 +221,30 @@ def test_lifted_flags_run(case, msseg2_checkpoint, hippo_root, small_hippo, tmp_
         assert masks[0].keys() == masks[1].keys() and masks[0]
         for name in masks[0]:
             np.testing.assert_array_equal(masks[0][name], masks[1][name])
+    elif case == "ensemble-affines":
+        ensemble = tmp_path / "ensemble"
+        ensemble.mkdir()
+        context = thippo.get_context(device="cpu", variables={"DATASET_PATH": str(hippo_root)})
+        context.init_components()
+        context.model.ensure_initialized()
+        context.save(ensemble / "fold0.ckpt")
+        out = tmp_path / "out"
+        out.mkdir()
+        args = hippo_inference.build_parser().parse_args(
+            [str(ensemble), str(hippo_root), "served", "--out-folder", str(out),
+             "--ensemble-flips", "--ensemble-affines", "2", "--batched-tta", "--cohort",
+             "cbbrain_validation", "--device", "cpu"])
+        hippo_inference.main(**vars(args))
+        served = sorted(out.glob("subjects/*/dmri-hippo.nii.gz"))
+        assert len(served) == 3
+        data, _ = tsp.read_nifti(served[0])
+        assert data.shape == (1, 20, 18, 6) and set(np.unique(data)) <= {0, 1, 2}
+        assert json.loads((out / "served.json").read_text())["ensemble_affines"] == 2
+        [loaded] = hippo_inference.load_contexts(ensemble, hippo_root, True, True,
+                                                 device="cpu", ensemble_affines=2)
+        assert isinstance(loaded.model, tsp.EnsembleAffines) and loaded.model.batched
+        assert isinstance(loaded.model.model, tsp.EnsembleFlips)
+        assert len(loaded.model.matrices) == 2 and loaded.model.strategy == "majority"
     else:
         predictions = tmp_path / "predictions"
         chip_smoke.write_priors(str(hippo_root), str(predictions), 2)

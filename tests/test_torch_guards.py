@@ -52,10 +52,12 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_importing_every_port_module_loads_no_optional_host_package():
-    """pandas, matplotlib, PIL, cloudpickle and scikit-learn are imported
-    only where they are used (CSV attributes, StratifiedFilter, contour
-    images, closures in checkpoints), never by importing the port."""
-    optional = ["PIL", "cloudpickle", "matplotlib", "pandas", "sklearn"]
+    """pandas, matplotlib, PIL, cloudpickle, scikit-learn, ipywidgets,
+    tensorboardX and wandb are imported only where they are used (CSV
+    attributes, StratifiedFilter, contour images, closures in checkpoints,
+    notebook widgets, the loggers' mirrors), never by importing the port."""
+    optional = ["PIL", "cloudpickle", "matplotlib", "pandas", "sklearn", "ipywidgets",
+                "tensorboardX", "wandb"]
     code = (
         "import importlib, pkgutil, sys\n"
         "import segmentation_pipeline_torch as pkg\n"

@@ -3,7 +3,7 @@
 from Python's ``random``): the centres of WeightedSampler, UniformSampler
 and LabelSampler, PatchQueue's order, SubjectsLoader's batches and one
 PatchDataLoader batch as msseg2's trainer builds it; thread workers keep
-the order; process workers raise."""
+the order; process workers give the patches and batches of threads."""
 import copy
 
 import numpy as np
@@ -147,11 +147,34 @@ def test_thread_workers_keep_the_order():
     assert [[s.name for s in b] for b in loader] == [["s0", "s1", "s2", "s3"], ["s4", "s5"]]
 
 
-def test_process_workers_raise():
+def test_process_workers_run(tmp_path):
+    """use_processes=True in both factories and in PatchQueue: at one seed,
+    the patches of two worker processes equal the thread path's (patches
+    are drawn in the consumer), and the batches the serial ones."""
+    for i, s in enumerate(_subjects(tsp, 4)):
+        folder = tmp_path / "subjects" / s.name
+        folder.mkdir(parents=True)
+        for name in ("X", "patch_probability"):
+            tsp.write_nifti(folder / f"{name}.nii.gz", np.asarray(s[name].data), np.eye(4))
+    dataset = tsp.SubjectFolder(str(tmp_path), "subjects", tsp.ComposeLoaders([
+        tsp.ImageLoader(glob_pattern=f"{name}.*", image_name=name,
+                        image_constructor=tsp.ScalarImage)
+        for name in ("X", "patch_probability")]))
     sampler = tsp.WeightedSampler(PATCH, "patch_probability")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tsp.PatchDataLoader(100, 1, sampler, use_processes=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tsp.StandardDataLoader(use_processes=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tloader.PatchQueue(Dataset([]), 4, 1, sampler, use_processes=True)
+    runs = []
+    for processes in (False, True):
+        tsp.seed_all(0)
+        factory = tsp.PatchDataLoader(100, 2, sampler, use_processes=processes)
+        runs.append([p for b in factory.get_data_loader(dataset, 3, num_workers=2) for p in b])
+        factory.close_pools()
+    assert len(runs[1]) == 8
+    for a, b in zip(*runs):
+        assert a.name == b.name and np.array_equal(a["location"], b["location"])
+        np.testing.assert_array_equal(a["X"].data, b["X"].data)
+    queue = tloader.PatchQueue(dataset, 4, 1, sampler, num_workers=2, use_processes=True)
+    assert len(list(queue)) == 4
+    queue.close()
+    factory = tsp.StandardDataLoader(use_processes=True)
+    batches = [[s.name for s in b] for b in factory.get_data_loader(dataset, 3, num_workers=2)]
+    factory.close_pools()
+    assert batches == [["s0", "s1", "s2"], ["s3"]]

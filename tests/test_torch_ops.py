@@ -71,6 +71,53 @@ def test_conv_other_shapes_match_jax(ksize, stride, padding):
     np.testing.assert_allclose(out.numpy(), ref, atol=CONV_ATOL, rtol=CONV_RTOL)
 
 
+@pytest.mark.parametrize("ksize,stride,padding,output_padding",
+                         [(3, 2, 1, 0), (3, 2, 1, 1), (2, 2, 0, 0), (3, 3, 1, 2), (1, 2, 0, 1)])
+def test_transposed_conv_by_phases_matches_jax(ksize, stride, padding, output_padding,
+                                               monkeypatch):
+    """Without a gradient (serving) the float32 transposed conv runs as one
+    forward conv by output phase under cuDNN's deterministic flag: equal to
+    JAX's conv_transpose3d and to the path that records a gradient
+    (F.conv_transpose3d), and the same bits again on a second call; the
+    bfloat16 one runs F.conv_transpose3d under the flag."""
+    x = _normal((2, 5, 6, 4, 4), 6)
+    k = _normal((ksize, ksize, ksize, 4, 3), 7)
+    conv = dict(stride=stride, padding=padding, output_padding=output_padding)
+    ref = np.asarray(jconv.conv_transpose3d(jnp.asarray(x), jnp.asarray(k), **conv))
+    flags = []
+    conv3d = torch.nn.functional.conv3d
+
+    def recording(*args, **kwargs):
+        flags.append(torch.backends.cudnn.deterministic)
+        return conv3d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv3d", recording)
+    with torch.no_grad():
+        served = tconv.conv_transpose3d(torch.from_numpy(x), torch.from_numpy(k), **conv)
+    assert flags == [True]
+    assert not torch.backends.cudnn.deterministic
+    trained = tconv.conv_transpose3d(torch.from_numpy(x), torch.from_numpy(k), **conv)
+    assert served.shape == trained.shape == ref.shape
+    np.testing.assert_allclose(served.numpy(), ref, atol=CONV_ATOL, rtol=CONV_RTOL)
+    np.testing.assert_allclose(served.numpy(), trained.detach().numpy(), atol=1e-5, rtol=1e-6)
+    with torch.no_grad():
+        again = tconv.conv_transpose3d(torch.from_numpy(x), torch.from_numpy(k), **conv)
+    assert torch.equal(again, served)
+    # bfloat16 serving stays on the library's transposed conv, deterministic
+    transposed = torch.nn.functional.conv_transpose3d
+
+    def recording_transposed(*args, **kwargs):
+        flags.append(torch.backends.cudnn.deterministic)
+        return transposed(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv_transpose3d", recording_transposed)
+    flags.clear()
+    with torch.no_grad():
+        served = tconv.conv_transpose3d(torch.from_numpy(x).bfloat16(),
+                                        torch.from_numpy(k).bfloat16(), **conv)
+    assert flags == [True] and served.dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("shape", [(2, 6, 4, 2, 3), (1, 5, 7, 3, 2), (1, 2, 2, 2, 1)])
 def test_avg_pool3d_matches_jax(shape):
     x = _normal(shape, 8)

@@ -197,15 +197,17 @@ def follow_jax(monkeypatch, recorded):
     monkeypatch.setattr(ttrainer, "make_train_step", following_make)
 
 
-def run(pkg, root, logs, state, max_iterations=ITERATIONS, seed=0, **kwargs):
-    """Build, load ``state`` and train from host seed ``seed``; returns the
-    context, the logger and the metric records."""
+def run(pkg, root, logs, state, max_iterations=ITERATIONS, seed=0, train_kwargs=None, **kwargs):
+    """Build, load ``state`` and train from host seed ``seed`` (with
+    ``train_kwargs`` for ``train``); returns the context, the logger and
+    the metric records."""
     context = build_context(pkg, root, **kwargs)
     context.init_components()
     context.model.load_state_dict(state if pkg is tsp else state_dict_to_flax(state))
     pkg.seed_all(seed)
     logger = (tsp.FileLogger if pkg is tsp else JFileLogger)(str(logs))
-    context.trainer.train(context, max_iterations=max_iterations, logger=logger)
+    context.trainer.train(context, max_iterations=max_iterations, logger=logger,
+                          **(train_kwargs or {}))
     records = [json.loads(line) for line in open(logger.run_dir / "metrics.jsonl")]
     return context, logger, records
 
@@ -403,6 +405,36 @@ def test_async_save_holds_its_own_iteration(e2e, tmp_path, monkeypatch):
     opt_state = saved.get_component_definition("trainer")["state_dict"]["opt_state"]
     for k, v in moments.items():
         assert np.array_equal(opt_state["state"][0][k], v.numpy()), k
+
+
+def test_sync_fetch_and_pretransformed_training_data_match_jax(e2e, tmp_path, monkeypatch):
+    """defer_metric_fetch=False (every loss read before the next step; no
+    deferred fetch starts) and train(pretransform_training_data=True) (the
+    pipeline run once before the loop) on both packages: the same losses
+    and records, following JAX's states. A stochastic pipeline warns that
+    pretransforming freezes its draw, as in JAX."""
+    root, state, _, _ = e2e
+    options = dict(train_kwargs={"pretransform_training_data": True}, defer_metric_fetch=False)
+    recorded = record_jax_states(monkeypatch)
+    _, _, jrec = run(jsp, root, tmp_path / "jax", state, max_iterations=4, **options)
+    follow_jax(monkeypatch, recorded)
+    fetches = []
+    start_fetch = ttrainer.start_fetch
+    monkeypatch.setattr(ttrainer, "start_fetch", lambda t: fetches.append(1) or start_fetch(t))
+    context, _, trec = run(tsp, root, tmp_path / "port", state, max_iterations=4, **options)
+    assert context.trainer.defer_metric_fetch is False and not fetches
+    assert "preload_train_s" in context.trainer.startup_phases
+    assert [sorted(set(r) - {"timer"}) for r in trec] == [sorted(set(r) - {"timer"}) for r in jrec]
+    for j, t in zip(jrec, trec):
+        assert math.isclose(t["loss"], j["loss"], rel_tol=LOSS_RTOL, abs_tol=LOSS_RTOL)
+
+    noisy = build_context(tsp, root)
+    noisy.get_component_definition("dataset")["params"]["transforms"]["training"] = \
+        tsp.Compose([tsp.RandomNoise(std=0.1), noisy.get_component_definition("dataset")[
+            "params"]["transforms"]["default"]])
+    noisy.init_components()
+    with pytest.warns(UserWarning, match="freezes the stochastic transforms"):
+        noisy.trainer.train(noisy, max_iterations=1, pretransform_training_data=True)
 
 
 class Resynthesize(tsp.RandomTransform):
