@@ -31,7 +31,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bfloat16 (tensor cores), held against their plain versions (also bit for
    bit on small-integer inputs; dW twice, bitwise equal) and timed beside
    them, cuDNN's gradients (torch.nn.grad.conv3d_input / conv3d_weight) and
-   the bound (float32: both).
+   the bound (float32: both). Then, untimed in both types, the forward, dX
+   and dW at every class at N=16 (phase 16's step at world 1 and its TTA
+   forward on each rank).
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
@@ -84,7 +86,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    --seed, PatchPredict(patch_batch_size=1, patch 96, overlap 48, edge,
    device_argmax) and the way back: inversion, remove_holes(64),
    remove_small_components(3), resample onto the raw grid. One untimed and
-   3 timed requests in float32, then in bfloat16 (27 forwards of 34
+   2 timed requests in float32, then in bfloat16 (27 forwards of 34
    launches at N=1 each), the host's pipeline and way back timed apart;
    1 + 2 validation sweeps (PatchPredict(patch_batch_size=32, overlap 12)
    over both subjects, one forward of N=12 each, no halving) per type.
@@ -198,8 +200,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    asserted), ms_inference on its checkpoint with and without
    --device-argmax (34 launches per patch; identical masks), ms_run in a
    subprocess on one raw FLAIR pair (its mask equals ms_inference's on the
-   staged folder); and the flag that raises (--tta-mesh) names its ROADMAP
-   item.
+   staged folder).
 14. qsm-dwi: qsm's configuration (segmentation_pipeline_torch/research/
    qsm_deep_grey_matter: NestedResUNet(2 -> 10, filters=40) on the
    reference crop 120x144x96 of 256x288x128 volumes) and dmri_hippo's DWI
@@ -256,6 +257,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    each sweep's ms by state beside a host-path run's, the bytes fetched per
    subject; overlap_histogram_device against the host instance chain on
    lesion masks of that grid, with a capacity it overflows.
+16. mesh: the data-parallel mesh (segmentation_pipeline_torch/parallel).
+   NCCL refuses two ranks on one card, so the mesh runs at world size 2 as
+   two processes on the card that the port's launcher starts
+   (launch_multihost.launch_local; each runs this script with --mesh-rank),
+   joined by gloo, which carries the CUDA tensors, and at world size 1
+   under NCCL in this process; each
+   against this process without a mesh, on the same inputs: (a) dmri_hippo's
+   train step (NestedResUNet(3 -> 2, filters=40, dropout_p=0.2), sagittal
+   split, Adam(lr=2e-4)) at a global batch of 8 subjects of 3x96x88x24 (4 a
+   rank at world 2), 3 steps in f32 and in bf16 from the same weights and
+   dropout seed, 25/23/25 launches a step asserted on each rank: the losses
+   (f32 within 1e-4, bf16 within 4e-3, relative), the f32 gradient and
+   update after each step (within 1e-4, or within the farthest that the
+   one process moves from itself when its batch or its weights are nudged
+   by one rounding, four nudges), every rank's weights bit for bit, the
+   trainer's stop vote; (b) hippo_inference --ensemble-flips --batched-tta
+   --tta-mesh on one fold's checkpoint and the 4 validation subjects of
+   phase 11's dataset (one forward of 25 launches at N=16 on each rank):
+   the labels on the scanner grid equal voxel for voxel; (c) the msseg2
+   competition predictor with mesh= on one raw 256x256x144 subject in
+   model space (the 27 patches padded to 28, 14 a rank, 34 launches each):
+   probabilities within 1e-5, masks equal. Each path's time beside the one
+   process's, each part's seconds and the ranks' timeline; the ranks are
+   joined before the phase ends.
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -271,11 +296,13 @@ import argparse
 import contextlib
 import copy
 import cProfile
+import datetime
 import gc
 import inspect
 import itertools
 import json
 import os
+import pickle
 import pstats
 import shutil
 import signal
@@ -285,6 +312,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from collections import Counter
 
 import numpy as np
@@ -311,6 +339,7 @@ from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_
 from segmentation_pipeline_torch.core.subject import collate_subjects
 from segmentation_pipeline_torch.data.loader import extract_patch
 from segmentation_pipeline_torch.ops.sliding_window import grid_locations
+from segmentation_pipeline_torch.parallel.mesh import any_rank
 from segmentation_pipeline_torch.prediction import (StandardPredict, apply_stochastic_matrix,
                                                     reverse_split_and_flip, split_and_flip)
 from segmentation_pipeline_torch.research.dmri_hippo.configs import cascade as cascade_config
@@ -328,6 +357,7 @@ from segmentation_pipeline_torch.research.msseg2.competition.ms_inference import
     competition_predictor, ms_to_raw_grid)
 from segmentation_pipeline_torch.research.qsm_deep_grey_matter import \
     qsm_deep_grey_matter as qsm_config
+from segmentation_pipeline_torch.research.scripts import launch_multihost
 from segmentation_pipeline_torch.training import trainer as trainer_module
 from segmentation_pipeline_torch.training.hybrid_augment import HybridHostAugment
 from segmentation_pipeline_torch.training.model import SegModel
@@ -473,7 +503,7 @@ def check_exact(name, kernel, plain, *inputs):
 
 
 # time_ms's arguments for the kernel and cuDNN, and for the plain version
-TIMING = (dict(trials=15, calls=5), dict(trials=10, calls=1))
+TIMING = (dict(trials=8, calls=5), dict(trials=5, calls=1))
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -911,7 +941,7 @@ def hippo_subject(pkg, volumes, affine, name):
 ORIGINAL_GRID = (112, 104, 20)
 FOLDS, FLIP_DIMS = 2, (3, 4)
 TTA_BATCH = 2 * SUBJECTS_PER_REQUEST * 2 ** len(FLIP_DIMS)
-TTA_REQUESTS = 5
+TTA_REQUESTS = 3
 # EnsembleOrientations: one subject, the 8 flips of each of the 6
 # permutations folded into one forward of its 2 half-volumes.
 ORIENT_BATCH = 2 * 8
@@ -950,7 +980,7 @@ def fold_flip_tta(folds, batched=True):
 # 8 half-volumes in one forward
 AFFINE_MEMBERS = 4
 AFFINE_BATCH = AFFINE_MEMBERS * TTA_BATCH
-AFFINE_REQUESTS = 3
+AFFINE_REQUESTS = 2
 # the CPU check: the identity and one warp on a cut of one half-volume
 # (the full composition of one subject takes about two minutes on the card
 # host's CPU); the cut keeps each side a multiple of 8 for the 3 pools
@@ -1187,17 +1217,19 @@ def tta_checks(card, seed, folds, predictor, pool, batched_labels):
     print("tta f32 device_argmax: the bit-packed fetch gives the plain fetch's answers",
           flush=True)
 
-    # The first subject through fold 0's flip TTA, on the card and the CPU.
+    # The first subject's first half-volume through fold 0's flip TTA, on
+    # the card and the CPU (both halves took 31-37 s of CPU).
     torch.set_num_threads(os.cpu_count() or 1)
     cpu_fold = fold_models(seed, "cpu")[0]
     card_flips = EnsembleFlips(folds[0], "majority", FLIP_DIMS, batched=True)
     cpu_flips = EnsembleFlips(cpu_fold, "majority", FLIP_DIMS, batched=True)
+    half = split[:1]
     t0 = time.perf_counter()
-    members_cpu = cpu_flips._members(split[0::SUBJECTS_PER_REQUEST].cpu())
+    members_cpu = cpu_flips._members(half.cpu())
     cpu_s = time.perf_counter() - t0
-    members_gpu = [m.cpu() for m in card_flips._members(split[0::SUBJECTS_PER_REQUEST])]
-    compare_cpu("tta f32 fold 0 flips vs CPU port (first subject)", members_gpu, members_cpu,
-                cpu_s, card)
+    members_gpu = [m.cpu() for m in card_flips._members(half)]
+    compare_cpu("tta f32 fold 0 flips vs CPU port (first subject's first half-volume)",
+                members_gpu, members_cpu, cpu_s, card)
 
     orient = EnsembleOrientations(folds[0], "majority", batched=True)
     one = [copy.deepcopy(pool[0])]
@@ -1216,7 +1248,7 @@ def tta_checks(card, seed, folds, predictor, pool, batched_labels):
     print(f"tta f32 EnsembleOrientations (majority, batched; 1 subject, 6 forwards x "
           f"{CONVS_PER_FORWARD} launches at N={ORIENT_BATCH}): {ms:.3f} ms [{card}]", flush=True)
     perm = (4, 2, 3)
-    x_perm = split[0::SUBJECTS_PER_REQUEST].permute(0, 1, *perm).contiguous()
+    x_perm = half.permute(0, 1, *perm).contiguous()
     t0 = time.perf_counter()
     p_cpu = cpu_fold(x_perm.cpu())
     cpu_s = time.perf_counter() - t0
@@ -1372,7 +1404,9 @@ MS_CONV_CLASSES = [
     ((3,) * 3, 120, 120, 3),
 ]
 MS_CONVS_PER_FORWARD = 34
-MS_REQUESTS, MS_SWEEPS = 3, 2
+# timed requests a dtype: each carries about 5 s of host pipeline and way
+# back, within the script's time budget
+MS_REQUESTS, MS_SWEEPS = 1, 1
 # The validation batch at which one activation passes 2**31 elements:
 # up_block_0's input, 32 x 96^3 x 80.
 MS_LARGE_BATCH, MS_LARGE_CLASSES = 32, [((96,) * 3, 80, 40, 1)]
@@ -1550,8 +1584,9 @@ def ms_validation_sweeps(card, model, subjects, dtype, val_patches):
 
 def ms_checks(card, seed, model, subjects):
     """f32 only: a device_argmax request against a full-probability one, the
-    validation batch against batches of 1, one 96^3 patch against the port
-    on the CPU, and cuDNN's TF32 against the port's library convs."""
+    validation batch against batches of 1, one patch cut to MS_CPU_PATCH^3
+    against the port on the CPU, and cuDNN's TF32 against the port's library
+    convs."""
     one = subjects[0]
     [packed], _ = competition_predictor(device_argmax=True).predict(model, [copy.deepcopy(one)])
     [full], _ = competition_predictor(device_argmax=False).predict(model, [copy.deepcopy(one)])
@@ -1572,11 +1607,12 @@ def ms_checks(card, seed, model, subjects):
 
     torch.set_num_threads(os.cpu_count() or 1)
     cpu_model = msseg2_model(seed, "cpu")
-    x = torch.from_numpy(np.ascontiguousarray(one["X"].data[:, :MS_PATCH, :MS_PATCH, :MS_PATCH]))
+    cut = MS_CPU_PATCH  # a 96^3 patch took 17-19 s on the CPU
+    x = torch.from_numpy(np.ascontiguousarray(one["X"].data[:, :cut, :cut, :cut]))
     t0 = time.perf_counter()
     p_cpu = cpu_model(x[None])
     cpu_s = time.perf_counter() - t0
-    compare_cpu(f"msseg2 f32 {MS_PATCH}^3 patch vs CPU port", [model(x[None]).cpu()], [p_cpu],
+    compare_cpu(f"msseg2 f32 {cut}^3 patch vs CPU port", [model(x[None]).cpu()], [p_cpu],
                 cpu_s, card)
 
     xs = torch.from_numpy(np.random.default_rng(seed).normal(size=(2, 48, 48, 48, 40))
@@ -1788,12 +1824,8 @@ def cpu_train_comparison(card, name, make_module, make_optimizer, criterion, sta
                          sagittal_split=False, refine_image=None):
     """One f32 train step on the channel-first batch ``one``, on the card and
     on the port on the CPU, from ``state_dict``: the loss and every
-    parameter's gradient. One more CPU step, on the input changed by about
-    1e-7 relative, shows how far float32 rounding alone moves the
-    gradients."""
+    parameter's gradient."""
     torch.set_num_threads(os.cpu_count() or 1)
-    noise = np.random.default_rng(0).standard_normal(one["X"].shape)
-    nudged = dict(one, X=(one["X"] * (1 + 1e-7 * noise)).astype(np.float32))
 
     def run(device, batch):
         model = SegModel(make_module(), device=device)
@@ -1813,13 +1845,11 @@ def cpu_train_comparison(card, name, make_module, make_optimizer, criterion, sta
                    for k, g in ref.items())
 
     (loss_gpu, grads_gpu, _), (loss_cpu, grads_cpu, cpu_s) = run("cuda", one), run("cpu", one)
-    _, grads_nudged, _ = run("cpu", nudged)
-    card_diff, own = worst(grads_gpu, grads_cpu), worst(grads_nudged, grads_cpu)
+    card_diff = worst(grads_gpu, grads_cpu)
     loss_diff = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     print(f"{name}: loss {loss_gpu:.7f} vs "
           f"{loss_cpu:.7f} (rel diff {loss_diff:.3g}); worst gradient max abs diff / "
           f"max|grad| {card_diff[0]:.3g} at {card_diff[1]} over {len(grads_cpu)} parameters; "
-          f"the CPU against itself on the input changed by 1e-7: {own[0]:.3g} at {own[1]}; "
           f"CPU step took {cpu_s:.1f} s [{card}]", flush=True)
     assert loss_diff <= CPU_LOSS_TOL and card_diff[0] <= CPU_GRAD_TOL
 
@@ -1833,8 +1863,7 @@ def cpu_train_comparison(card, name, make_module, make_optimizer, criterion, sta
 MS_TRAIN_BATCH = MS_TRAIN_SUBJECTS = 4
 # the 15 classes' timings at N=4 in three kinds and two types took about a
 # minute at TIMING's depth; this depth makes room for the qsm-dwi phase
-MS_TRAIN_TIMING = (dict(trials=5, calls=3), dict(trials=3, calls=1))
-MS_LOADER_BATCHES = 3
+MS_TRAIN_TIMING = (dict(trials=3, calls=3), dict(trials=2, calls=1, warmup=1))
 MS_CLASS_WEIGHTS = [1, 100]
 # remat runs the forward of every conv again in the backward but out_conv's
 # (the one conv outside the blocks, the only one with MS_OUT_CHANNELS
@@ -1877,13 +1906,11 @@ def ms_training_set(root):
 def ms_train_batches(card, seed, root):
     """The training cohort of the dataset under ``root`` through the
     ``training`` pipeline and the patch queue: one batch on the main path
-    (pipeline and queue timed together), then the pipeline once more over
-    the cohort (preload_and_transform_subjects, timed per subject) and
-    MS_LOADER_BATCHES batches from the queue alone over copies of those
-    subjects (timed per batch). Each batch is stacked and uploaded as the
-    trainer does it (trainer.stack_batch, trainer.upload_batch). Returns the
-    host batches (X channel-first, y class ids, and the class count) and the
-    device batches."""
+    (pipeline and queue timed together, on the trainers' TRAINER_WORKERS
+    threads), stacked and uploaded as the trainer does it
+    (trainer.stack_batch, trainer.upload_batch). Returns the host batches
+    (X channel-first, y class ids, and the class count) and the device
+    batches."""
     seed_all(seed)
     factory = PatchDataLoader(max_length=100, samples_per_volume=1,
                               sampler=WeightedSampler(patch_size=MS_PATCH,
@@ -1891,19 +1918,10 @@ def ms_train_batches(card, seed, root):
     dataset = ms_training_set(root)
     assert len(dataset) == MS_TRAIN_SUBJECTS, len(dataset)
     t0 = time.perf_counter()
-    batches = list(factory.get_data_loader(dataset, MS_TRAIN_BATCH))
+    batches = list(factory.get_data_loader(dataset, MS_TRAIN_BATCH,
+                                           num_workers=TRAINER_WORKERS))
     first_ms = (time.perf_counter() - t0) * 1e3
     assert [len(b) for b in batches] == [MS_TRAIN_BATCH], [len(b) for b in batches]
-    t0 = time.perf_counter()
-    dataset.preload_and_transform_subjects()
-    pipeline_ms = (time.perf_counter() - t0) * 1e3 / len(dataset)
-    shapes = [s["X"].spatial_shape for s in dataset.subjects]
-    loader_ms = []
-    for _ in range(MS_LOADER_BATCHES):
-        t0 = time.perf_counter()
-        [batch] = list(factory.get_data_loader(dataset, MS_TRAIN_BATCH))
-        loader_ms.append((time.perf_counter() - t0) * 1e3)
-        batches.append(batch)
     host = [trainer_module.stack_batch(b) for b in batches]
     for b, n_classes in host:
         assert n_classes == 2 and b["y"].dtype == np.uint8, n_classes
@@ -1913,14 +1931,10 @@ def ms_train_batches(card, seed, root):
     lesion = [float((b["y"] == 1).mean()) for b, _ in host]
     print(f"msseg2 train data: {MS_TRAIN_SUBJECTS} raw training subjects of "
           f"{'x'.join(map(str, MS_RAW_GRID))} at {MS_RAW_SPACING} mm with ground truth read "
-          f"by the configuration's SubjectFolder, model space {shapes}; first batch "
-          f"(training pipeline + PatchDataLoader, 4 subjects) {first_ms:.1f} ms; training "
-          f"pipeline alone {pipeline_ms:.1f} ms per subject (host); PatchDataLoader alone "
-          "over copies of the transformed subjects " + ", ".join(f"{t:.1f}" for t in loader_ms)
-          + f" ms per batch of {MS_TRAIN_BATCH}; lesion share of the batches' patches "
-          + ", ".join(f"{v:.5f}" for v in lesion) + " (the whole volume's is about "
-          f"{np.mean([float((s['y'].data[1] > 0).mean()) for s in dataset.subjects]):.5f}) "
-          f"[{card}]", flush=True)
+          f"by the configuration's SubjectFolder; the batch (training pipeline + "
+          f"PatchDataLoader, 4 subjects, {TRAINER_WORKERS} threads) {first_ms:.1f} ms; "
+          f"lesion share of its patches "
+          + ", ".join(f"{v:.5f}" for v in lesion) + f" [{card}]", flush=True)
     return host, [trainer_module.upload_batch(b, n, "cuda") for b, n in host]
 
 
@@ -1949,8 +1963,8 @@ def ms_train_phase(card, seed, rows, root):
     in f32 and in bf16 on the full-width rematerialized network (launches
     per step by class asserted), one profiled step per dtype, the remat
     check and the card against the CPU. Fills the launches per step of the
-    N=4 rows. The batches cycle: the step does not wait on the host's
-    pipeline, which is timed apart."""
+    N=4 rows. Every step takes the one batch: the step does not wait on the
+    host's pipeline, which is timed apart."""
     host, batches = ms_train_batches(card, seed, root)
     stacked = [channel_first_one_hot(b, n) for b, n in host]
     module = msseg2_network()
@@ -2090,21 +2104,23 @@ def ms_remat_check(card, state_dict, batch_cf, batch, criterion):
 # on disk, the configuration's get_context, init_components and
 # SegmentationTrainer.train with a FileLogger.
 HIPPO_SUBJECTS = {"validation": 4, "training": 8, "ab300": 4}
-TRAINER_ITERATIONS = 51
+# the fast path's f32 run reaches the schedule's interval of 50 (a second
+# validation sweep, score and checkpoint); the host-loader runs and the
+# fast bf16 run, host-bound or a repeat of it, stop after the evaluators of
+# interval 10 have run once more
+TRAINER_ITERATIONS, SHORT_TRAINER_ITERATIONS = 51, 11
 VALIDATION_BATCH = 16
 TRAINER_WORKERS = 4
-# num_workers=0, the slowest reading, is left out to make room for the cli
-# phase, and 4, which the runs above read at TRAINER_ITERATIONS, for the
-# qsm-dwi phase
-WORKER_COUNTS = (2, 8)
-WORKER_ITERATIONS = 12
+# the process workers' run; thread counts other than TRAINER_WORKERS, which
+# the runs above read, are left out to keep the script's time
+WORKER_ITERATIONS = 8
 PROFILE_WARMUP_ITERATIONS = 3
 PROFILED_ITERATIONS = 5
-# host-bound (seconds an iteration): 3 iterations, cut from 6 for later phases
-MS_TRAINER_ITERATIONS = 3
+# host-bound (seconds an iteration): 2 iterations, cut from 6 for later phases
+MS_TRAINER_ITERATIONS = 2
 # the fast-path phase: msseg2's iterations and the batch of the
 # augmentation checks (the trainers' batch)
-MS_FAST_ITERATIONS, MS_FAST_PROFILE_START = 31, 16
+MS_FAST_ITERATIONS, MS_FAST_PROFILE_START = 21, 1
 AUG_BATCH = 4
 # dmri_hippo's schedule (main_config.py build_evaluation_schedule): the
 # evaluators each iteration runs, by interval.
@@ -2380,11 +2396,12 @@ def check_reloads(logger, root):
     return len(logger.answers)
 
 
-def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
-    """dmri_hippo's configuration at full width trained for
-    TRAINER_ITERATIONS iterations (``fast_path``: with tpu_fast_path=True):
-    launches, schedule, checkpoints and their reloads asserted; times
-    printed. Returns the context."""
+def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False,
+                      iterations=SHORT_TRAINER_ITERATIONS):
+    """dmri_hippo's configuration at full width trained for ``iterations``
+    iterations (``fast_path``: with tpu_fast_path=True): launches,
+    schedule, checkpoints and their reloads asserted; times printed.
+    Returns the context."""
     name = DTYPE_NAMES[dtype]
     context = hippo_config.get_context(
         variables={"DATASET_PATH": root}, tpu_fast_path=fast_path,
@@ -2398,7 +2415,7 @@ def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    context.trainer.train(context, max_iterations=TRAINER_ITERATIONS,
+    context.trainer.train(context, max_iterations=iterations,
                           num_workers=TRAINER_WORKERS,
                           validation_batch_size=VALIDATION_BATCH, logger=logger)
     wall_s = time.perf_counter() - t0
@@ -2407,19 +2424,20 @@ def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
 
     # launches: every iteration's step at the training batch (8 half-volumes),
     # and one forward of 16 half-volumes per validation sweep (iterations 0, 50)
-    sweeps = len(range(0, TRAINER_ITERATIONS, 50))
-    expected = expected_train_launches(dtype, TRAINER_ITERATIONS, 2 * SUBJECTS_PER_REQUEST)
+    swept = list(range(0, iterations, 50))
+    sweeps = len(swept)
+    expected = expected_train_launches(dtype, iterations, 2 * SUBJECTS_PER_REQUEST)
     expected["fwd"] = expected["fwd"] + expected_launches(dtype, sweeps, VALIDATION_BATCH)
     assert counts == expected, counts
     per_iteration = {kind: sum(n for key, n in c.items() if key[1] == 2 * SUBJECTS_PER_REQUEST)
-                     // TRAINER_ITERATIONS for kind, c in counts.items()}
+                     // iterations for kind, c in counts.items()}
     per_sweep = sum(n for key, n in counts["fwd"].items() if key[1] == VALIDATION_BATCH) // sweeps
     assert per_iteration == {"fwd": CONVS_PER_FORWARD, "dx": DX_PER_STEP,
                              "dw": CONVS_PER_FORWARD} and per_sweep == CONVS_PER_FORWARD
 
     # the schedule: which evaluators ran where, the score, the checkpoints
     records = read_records(logger)
-    assert [r["iteration"] for r in records] == list(range(TRAINER_ITERATIONS))
+    assert [r["iteration"] for r in records] == list(range(iterations))
     schedule = {k: v for k, v in HIPPO_SCHEDULE.items()
                 if not (drop_contours and k.startswith("contour"))}
     images = sorted(p.name for p in (logger.run_dir / "images").glob("*.png")) \
@@ -2441,15 +2459,15 @@ def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
                                     for c in ("cbbrain_validation", "ab300_validation_plot")]
     assert images == sorted(expected_images), images
     scores = {r["iteration"]: r["model_score"] for r in records if "model_score" in r}
-    assert list(scores) == [0, 50] and all(np.isfinite(list(scores.values())))
+    assert list(scores) == swept and all(np.isfinite(list(scores.values())))
     assert all(np.isfinite(r["loss"]) for r in records)
     checkpoints = sorted(p.name for p in (logger.run_dir / "checkpoints").iterdir())
-    assert checkpoints == [f"dmri-hippo-iter{i:08}.ckpt" for i in (0, TRAINER_ITERATIONS)]
+    assert checkpoints == [f"dmri-hippo-iter{i:08}.ckpt" for i in (0, iterations)]
     best = sorted(p.name for p in (logger.run_dir / "best_checkpoints").iterdir())
     assert best[0] == "dmri-hippo-iter00000000.ckpt", best
     reloaded = check_reloads(logger, root)
 
-    rate, text = split_text(plain_iterations(records, 0), TRAINER_ITERATIONS, wall_s)
+    rate, text = split_text(plain_iterations(records, 0), iterations, wall_s)
     sweep_ms = [r["timer"]["model_forward_evaluation"] * 1e3 for r in records
                 if "model_forward_evaluation" in r["timer"]]
     label = f"trainer dmri_hippo {name} with num_workers={TRAINER_WORKERS}"
@@ -2460,53 +2478,41 @@ def hippo_trainer_run(card, root, logs, dtype, drop_contours, fast_path=False):
           f"per iteration forward {per_iteration['fwd']}, dX {per_iteration['dx']}, dW "
           f"{per_iteration['dw']}, forward {per_sweep} per validation batch of "
           f"{VALIDATION_BATCH} half-volumes; validation sweep (8 subjects) "
-          + ", ".join(f"{t:.1f}" for t in sweep_ms) + " ms (iterations 0, 50); synchronous "
+          + ", ".join(f"{t:.1f}" for t in sweep_ms) + f" ms (iterations {swept}); synchronous "
           "part of a checkpoint save " + ", ".join(f"{t:.1f}" for t in logger.save_ms)
           + f" ms; max_memory_allocated {peak} bytes; losses {records[0]['loss']:.6f} -> "
-          f"{records[-1]['loss']:.6f}; model_score {scores[0]:.6f} (it 0), "
-          f"{scores[50]:.6f} (it 50); checkpoints {checkpoints}, best {best}; {reloaded} "
+          f"{records[-1]['loss']:.6f}; model_score " + ", ".join(
+              f"{v:.6f} (it {it})" for it, v in scores.items())
+          + f"; checkpoints {checkpoints}, best {best}; {reloaded} "
           f"reloaded checkpoints answer bit for bit as saved; {len(images)} contour images "
           f"[{card}]", flush=True)
     return context, rate
 
 
-def worker_sweep(card, context):
-    """Iterations per second of the f32 trainer against num_workers, over
-    the iterations with no evaluator (beside the timer's median split) and
-    over the whole train() call; at TRAINER_WORKERS, process workers (the
-    training loader's use_processes) and then threads again."""
-    rates, prefetch = {}, {}
+def process_worker_run(card, context):
+    """Iterations per second of the f32 trainer with TRAINER_WORKERS process
+    workers (the training loader's use_processes), over the iterations with
+    no evaluator (beside the timer's median split) and over the whole
+    train() call; the first run of the phase reads as many threads."""
     factory = context.trainer.train_dataloader_factory
-    runs = [(w, False) for w in WORKER_COUNTS] + [(TRAINER_WORKERS, p) for p in (True, False)]
-    for workers, processes in runs:
-        logger = MemoryLogger()
-        first = context.trainer.iteration
-        factory.use_processes = processes
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        try:
-            context.trainer.train(context, max_iterations=WORKER_ITERATIONS,
-                                  num_workers=workers, validation_batch_size=VALIDATION_BATCH,
-                                  logger=logger)
-        finally:
-            factory.close_pools()
-            factory.use_processes = False
-        wall_s = time.perf_counter() - t0
-        counts = launch_counts()
-        assert counts["dw"].total() == CONVS_PER_FORWARD * WORKER_ITERATIONS, counts["dw"]
-        timers = plain_iterations(logger.records, first)
-        plain, text = split_text(timers, WORKER_ITERATIONS, wall_s)
-        kind = f"{workers} {'processes' if processes else 'threads'}"
-        rates.setdefault(kind, []).append((plain, WORKER_ITERATIONS / wall_s))
-        prefetch.setdefault(kind, []).append(
-            statistics.median(t["next_batch_prefetch"] for t in timers) * 1e3)
-        print(f"trainer dmri_hippo f32 num_workers={kind}: {text} [{card}]", flush=True)
-    print("trainer dmri_hippo f32 iterations/s by num_workers (plain iterations / whole call, "
-          "each reading; next_batch_prefetch median ms): " + "; ".join(
-              f"{k}: " + ", ".join(f"{p:.3f}/{a:.3f}" for p, a in r) + " ("
-              + ", ".join(f"{m:.1f}" for m in prefetch[k]) + ")" for k, r in rates.items())
-          + f" [{card}]", flush=True)
-    return rates
+    logger = MemoryLogger()
+    first = context.trainer.iteration
+    factory.use_processes = True
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        context.trainer.train(context, max_iterations=WORKER_ITERATIONS,
+                              num_workers=TRAINER_WORKERS,
+                              validation_batch_size=VALIDATION_BATCH, logger=logger)
+    finally:
+        factory.close_pools()
+        factory.use_processes = False
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts["dw"].total() == CONVS_PER_FORWARD * WORKER_ITERATIONS, counts["dw"]
+    _, text = split_text(plain_iterations(logger.records, first), WORKER_ITERATIONS, wall_s)
+    print(f"trainer dmri_hippo f32 num_workers={TRAINER_WORKERS} processes: {text} [{card}]",
+          flush=True)
 
 
 def profile_trainer(card, context, label="trainer dmri_hippo f32"):
@@ -2539,7 +2545,7 @@ def ms_trainer_run(card, root, logs, drop_contours, fast_path=False,
         without_contour_images(context)
     context.init_components()
     # the fast path's profile window lies in this run, between the
-    # training evaluators of iterations 15 and 30 (a second train() call
+    # training evaluators of iterations 0 and 15 (a second train() call
     # would pretransform the training set again)
     logger = (ProfilingFileLogger(logs).profile(MS_FAST_PROFILE_START) if fast_path
               else tsp.FileLogger(logs))
@@ -2634,8 +2640,8 @@ def reader_check(card, root, ms_root, rounds=1, count=2):
 
 def trainer_phase(card, root, ms_root, tmp, drop_contours):
     """The sustained training loop on the card: dmri_hippo in f32 and bf16
-    over the dataset under ``root``, the f32 worker sweep (threads and
-    process workers) and profile, then msseg2 in f32 over the dataset under
+    over the dataset under ``root``, the f32 trainer with process workers
+    and its profile, then msseg2 in f32 over the dataset under
     ``ms_root``; first, the NIfTI reader against the codec on both."""
     reader_check(card, root, ms_root)
     contexts = {}
@@ -2644,7 +2650,7 @@ def trainer_phase(card, root, ms_root, tmp, drop_contours):
             card, root, os.path.join(tmp, f"logs-{DTYPE_NAMES[dtype]}"), dtype, drop_contours)
     del contexts[torch.bfloat16]
     torch.cuda.empty_cache()
-    worker_sweep(card, contexts[torch.float32])
+    process_worker_run(card, contexts[torch.float32])
     profile_trainer(card, contexts[torch.float32])
     del contexts
     torch.cuda.empty_cache()
@@ -2749,8 +2755,10 @@ def fast_path_phase(card, seed, root, ms_root, tmp, drop_contours):
     augment_checks(card, seed)
     for dtype in (torch.float32, torch.bfloat16):
         name = DTYPE_NAMES[dtype]
-        context, _ = hippo_trainer_run(card, root, os.path.join(tmp, f"logs-fast-{name}"),
-                                       dtype, drop_contours, fast_path=True)
+        context, _ = hippo_trainer_run(
+            card, root, os.path.join(tmp, f"logs-fast-{name}"), dtype, drop_contours,
+            fast_path=True,
+            iterations=TRAINER_ITERATIONS if dtype == torch.float32 else SHORT_TRAINER_ITERATIONS)
         profile_trainer(card, context, f"fast-path dmri_hippo {name}")
         del context
         torch.cuda.empty_cache()
@@ -2890,23 +2898,24 @@ def cli_dmri_training(card, root, tmp):
     return ensemble
 
 
-def hippo_outputs(out, root, names):
-    """The hippo_inference outputs of ``names``: int labels in {0, 1, 2} on
-    the scanner grid with the scanner affine, the report and the settings."""
+def hippo_outputs(out, root, names, output=HIPPO_OUTPUT):
+    """The hippo_inference outputs ``output`` of ``names``: int labels in {0,
+    1, 2} on the scanner grid with the scanner affine, the report and the
+    settings."""
     labels = []
     for name in names:
         for suffix in ("_before_processing", ""):
             data, affine = read_nifti(os.path.join(out, "subjects", name,
-                                                   f"{HIPPO_OUTPUT}{suffix}.nii.gz"))
+                                                   f"{output}{suffix}.nii.gz"))
             _, raw_affine = read_nifti(os.path.join(root, "subjects", name, "mean_dwi.nii.gz"))
             assert data.shape == (1, *ORIGINAL_GRID) and np.issubdtype(data.dtype, np.integer)
             assert set(np.unique(data)) <= {0, 1, 2} and np.allclose(affine, raw_affine)
         labels.append(data)
-    with open(os.path.join(out, f"{HIPPO_OUTPUT}.txt")) as f:
+    with open(os.path.join(out, f"{output}.txt")) as f:
         assert f.read().count("Filled") == len(names)
     with open(os.path.join(out, "cli.json")) as f:
         settings = json.load(f)
-    assert settings["output_filename"] == f"{HIPPO_OUTPUT}.nii.gz"
+    assert settings["output_filename"] == f"{output}.nii.gz"
     return labels
 
 
@@ -3091,22 +3100,6 @@ def cli_msseg2(card, ms_root, tmp):
           f"folder ({int(served.sum())} lesion voxels) [{card}]", flush=True)
 
 
-def cli_raises():
-    """Each flag that waits for a ROADMAP item raises naming it."""
-    missing = "/nonexistent"
-    cases = (
-        (lambda: cli_hippo.main(missing, missing, "r", tta_mesh=True), "item 10"),
-    )
-    for call, item in cases:
-        try:
-            call()
-        except NotImplementedError as error:
-            assert item in str(error), error
-            print(f"cli raises: {error}", flush=True)
-        else:
-            raise AssertionError(f"no NotImplementedError naming {item}")
-
-
 # Serving determinism: the msseg2 competition request, probabilities and not
 # only masks, in separate processes (each one picks its own cuDNN algorithms).
 DETERMINISM_PROCESSES = 2
@@ -3134,16 +3127,25 @@ def serve_probabilities(seed, out):
 
 def serving_determinism(card, seed, tmp, processes=DETERMINISM_PROCESSES):
     """The competition request's probabilities from ``processes`` processes
-    (this one and the rest started afresh), two calls per type in each, bit
-    for bit: every call against this process's first call of its type.
-    Raises where any differ."""
+    (this one and the rest started afresh, all serving at once), two calls
+    per type in each, bit for bit: every call against this process's first
+    call of its type. Raises where any differ."""
     files = [os.path.join(tmp, f"probabilities-{p}.npz") for p in range(processes)]
-    with uncounted():
-        serve_probabilities(seed, files[0])
-    for out in files[1:]:
-        subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                        f"chip_smoke.serve_probabilities({seed}, {out!r})"],
-                       cwd=os.path.dirname(os.path.abspath(__file__)), check=True, timeout=600)
+    others = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                                f"chip_smoke.serve_probabilities({seed}, {out!r})"],
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+              for out in files[1:]]
+    try:
+        with uncounted():
+            serve_probabilities(seed, files[0])
+        for other in others:
+            if other.wait(timeout=600):
+                raise subprocess.CalledProcessError(other.returncode, other.args)
+    finally:
+        for other in others:
+            if other.poll() is None:
+                other.kill()
+                other.wait()
     reference = np.load(files[0])
     verdict = []
     for dtype in ("f32", "bf16"):
@@ -3233,14 +3235,13 @@ def compare_requests(card, trees, seed, requests=COMPARE_REQUESTS):
 def cli_phase(card, seed, root, ms_root, tmp, drop_contours):
     """The CLIs on the card: dmri_hippo training for two folds, its TTA
     serving in f32 and bf16 and the evaluation, 48-orientation serving,
-    msseg2 training, serving and the competition entry, and the raises."""
+    msseg2 training, serving and the competition entry."""
     t0 = time.perf_counter()
     with cli_contexts(drop_contours):
         ensemble = cli_dmri_training(card, root, tmp)
         cli_msseg2(card, ms_root, tmp)
     cli_hippo_serving(card, root, ensemble, tmp)
     cli_orientations(card, root, ensemble, tmp, seed)
-    cli_raises()
     print(f"cli phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
@@ -3264,13 +3265,12 @@ QSM_CONV_CLASSES = [
 ]
 # the reference (batch 4, f32) and the configuration's recipe (microbatch 2
 # with accumulate_steps=2, tpu_fast_path, bf16): the (N, dtype) each runs
-# its micro-steps at, the kernels line's rows; the other two are checked
-# and timed beside them
+# its micro-steps at, the kernels line's rows
 QSM_RUNS = ((4, torch.float32), (2, torch.bfloat16))
 # the kernel timings at these sizes: each call takes up to a few tens of ms
 # (the plain version up to about a second)
 QSM_TIMING = (dict(trials=3, calls=2, warmup=1), dict(trials=1, calls=1, warmup=1))
-QSM_REFERENCE_ITERATIONS, QSM_RECIPE_STEPS, QSM_PROFILE_START = 16, 18, 6
+QSM_REFERENCE_ITERATIONS, QSM_RECIPE_STEPS, QSM_PROFILE_START = 13, 18, 3
 # the accumulation check and the card-against-CPU step: a volume cut to
 # 64x64x32
 QSM_CUT = (64, 64, 32)
@@ -3279,7 +3279,7 @@ QSM_CUT = (64, 64, 32)
 # update ||d_accumulated - d_full|| / ||d_full||: float32 sums over the
 # batch in another split through 25 convs forward and backward.
 QSM_ACCUMULATION_TOL = 1e-4
-DWI_ITERATIONS, DEBUG_ITERATIONS = 6, 2
+DWI_ITERATIONS, DEBUG_ITERATIONS = 4, 2
 # the HybridHostAugment.apply call of the fast DWI run that runs under
 # cProfile
 PROFILED_APPLY = 3
@@ -3340,18 +3340,19 @@ def qsm_expected_launches(dtype, n, steps, remat, sweeps):
 
 
 def qsm_kernel_phase(device, seed, card):
-    """The forward, dX and dW at the nine qsm classes at N=4 and N=2 in both
-    dtypes, each checked and timed. Returns the rows at the (N, dtype) of
-    each training run (the kernels line) and the rows at the other two
-    (printed and summed, not run on the main path)."""
-    rows, others = [], []
-    for i, (n, dtype) in enumerate(QSM_RUNS + ((4, torch.bfloat16), (2, torch.float32))):
-        got = (kernel_phase(device, n, seed + 2 * i, card, QSM_CONV_CLASSES, (dtype,),
-                            QSM_TIMING)
-               + grad_kernel_phase(device, n, seed + 2 * i + 1, card, QSM_CONV_CLASSES,
-                                   QSM_IN_CHANNELS, (dtype,), QSM_TIMING))
-        (rows if (n, dtype) in QSM_RUNS else others).extend(got)
-    return rows, others
+    """The forward, dX and dW at the nine qsm classes at the (N, dtype) of
+    each training run, each checked and timed (the kernels line's rows),
+    and the forward of the reference's iteration-0 sweep (N=2, f32),
+    checked."""
+    rows = []
+    for i, (n, dtype) in enumerate(QSM_RUNS):
+        rows += (kernel_phase(device, n, seed + 2 * i, card, QSM_CONV_CLASSES, (dtype,),
+                              QSM_TIMING)
+                 + grad_kernel_phase(device, n, seed + 2 * i + 1, card, QSM_CONV_CLASSES,
+                                     QSM_IN_CHANNELS, (dtype,), QSM_TIMING))
+    kernel_phase(device, 2, seed + 2 * len(QSM_RUNS), card, QSM_CONV_CLASSES,
+                 (torch.float32,), timing=None)
+    return rows
 
 
 @contextlib.contextmanager
@@ -3615,7 +3616,7 @@ def qsm_dwi_phase(card, seed, root, tmp, drop_contours, device):
     the accumulation and card-against-CPU checks, then the DWI modes.
     Returns the kernel rows with their launches per micro-step."""
     t0 = time.perf_counter()
-    rows, others = qsm_kernel_phase(device, seed + 51, card)
+    rows = qsm_kernel_phase(device, seed + 51, card)
     print(f"qsm-dwi kernels: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     qsm_root = os.path.join(tmp, "qsm")
     t1 = time.perf_counter()
@@ -3640,12 +3641,6 @@ def qsm_dwi_phase(card, seed, root, tmp, drop_contours, device):
                 lambda row: row["launches"], card)
     step_totals("per qsm recipe micro-step (N=2 bf16)", [r for r in rows if r["_key"][1] == 2],
                 lambda row: row["launches"], card)
-    # the other two (N, dtype) at a micro-step's launches without remat
-    for n, dtype in ((4, torch.bfloat16), (2, torch.float32)):
-        per_step = qsm_expected_launches(dtype, n, 1, False, 0)
-        step_totals(f"per qsm micro-step at N={n} {DTYPE_NAMES[dtype]} (not run; 25/23/25 "
-                    f"launches)", [r for r in others if r["_key"][1] == n],
-                    lambda row: per_step[row["_kind"]][row["_key"]], card)
     print(f"qsm-dwi phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     return rows
 
@@ -4053,6 +4048,348 @@ def cascade_cleanup_phase(card, seed, root, ms_root, tmp, drop_contours, device)
     return rows
 
 
+# Phase 16, mesh: the data-parallel mesh (parallel/mesh.py) on one card. NCCL
+# refuses two ranks on one device, so the mesh runs at world size 2 as two
+# processes on the card joined by gloo, which carries the CUDA tensors, and
+# at world size 1 under NCCL in this process; each against one process
+# without a mesh.
+MESH_WORLD = 2
+MESH_BATCH = 2 * SUBJECTS_PER_REQUEST  # the global train batch: 4 subjects a rank
+MESH_STEPS = 3
+MESH_TIMEOUT_S = 150
+MESH_NCCL_BACKEND = "nccl"
+# f32: the global batch's sums in another order; bf16: the same, rounded to
+# bfloat16 after each layer (its epsilon is 2**-8)
+MESH_LOSS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+MESH_PARAM_TOL = 1e-4
+# The float32 noise of the one process: the one process again with one of
+# its inputs moved by one rounding (every value of the batch or of the
+# weights times 1 + 2**-23 or 1 - 2**-23). Adam's first steps move each
+# weight by about lr times the sign of its gradient, so weights whose
+# gradient is below that noise move either way. A mesh run's f32 gradient
+# and update after each step are held to MESH_PARAM_TOL or, where one of
+# these nudges moves the one process farther, to the farthest nudge.
+MESH_NUDGES = (("X", 1 + 2 ** -23), ("X", 1 - 2 ** -23), ("weights", 1 + 2 ** -23),
+               ("weights", 1 - 2 ** -23))
+MESH_PROB_TOL = 1e-5
+
+
+def mesh_inputs(seed, root, tmp):
+    """What every world runs on, made once here: the dmri_hippo weights and
+    train batch, a checkpoint of the ported configuration at random weights,
+    and one msseg2 subject in model space (a raw 256x256x144 subject
+    through the default pipeline)."""
+    rng = np.random.default_rng(seed + 40)
+    state = {k: v.numpy() for k, v in flax_to_state_dict(flax_weights(rng)).items()}
+    batch_cf = train_batch(rng, MESH_BATCH)
+    ensemble = os.path.join(tmp, "mesh-fold")
+    os.makedirs(ensemble)
+    context = hippo_config.get_context(variables={"DATASET_PATH": root})
+    context.init_components()
+    context.model.load_state_dict(flax_to_state_dict(flax_weights(rng)))
+    context.save(os.path.join(ensemble, "fold0.ckpt"))
+    raw = msseg2_subject(tsp, *msseg2_volumes(rng, MS_RAW_GRID, MS_RAW_SPACING,
+                                              MS_SEMI_AXES_MM), "ms-mesh")
+    subject = msseg2_config.build_pipelines(MS_PATCH)["default"](raw)
+    return dict(seed=seed, state=state, batch=batch_cf, ensemble=ensemble, root=root,
+                ms_x=np.asarray(subject["X"].data), ms_affine=subject["X"].affine)
+
+
+def mesh_steps(mesh, inputs, dtype, batch_cf, weights=None):
+    """MESH_STEPS dmri_hippo train steps on ``mesh`` (None: one process)
+    from ``weights`` (default: the inputs') and the inputs' seed on
+    ``batch_cf`` (on a mesh, this rank's rows of it), with 25/23/25
+    launches a step asserted: the losses, the ms a step, the launches a
+    step, and after each step the gradient, the weights and the update
+    (the weights less the first ones), flat (float32 on the host)."""
+    n = MESH_BATCH // (1 if mesh is None else mesh.size)  # this process's subjects
+    model = SegModel(NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS,
+                                   dropout_p=0.2), device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in (weights or inputs["state"]).items()})
+    optimizer = Adam(lr=2e-4)
+    state = create_train_state(model, optimizer, batch_cf)
+    step = make_train_step(model.module, HybridLogisticDiceLoss(), optimizer, mesh=mesh,
+                           sagittal_split=True,
+                           compute_dtype=None if dtype == torch.float32 else "bfloat16")
+    batch = collate_to_device(batch_cf, device="cuda", mesh=mesh)
+    generator = torch.Generator(device="cuda").manual_seed(inputs["seed"])
+    params = list(model.module.parameters())
+    first = torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy()
+    reset_launch_counts()
+    times, losses, grads, weights = [], [], [], []
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss_dict, y_pred = step(state, batch, generator)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss_dict["loss"].item())
+        with uncounted():
+            grads.append(torch.cat([p.grad.reshape(-1) for p in params]).cpu().numpy())
+            weights.append(torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy())
+    counts = launch_counts()
+    assert counts == expected_train_launches(dtype, MESH_STEPS, 2 * n), counts
+    assert tuple(y_pred.shape) == (n, *CROP, OUT_CHANNELS)
+    return dict(losses=losses, ms=times, grads=grads, weights=weights,
+                updates=[w - first for w in weights], launches=[
+                    counts[kind].total() // MESH_STEPS for kind in ("fwd", "dx", "dw")])
+
+
+def nudged_steps(inputs, what, factor):
+    """The one process's f32 steps with every value of the batch's X or of
+    the weights times ``factor``."""
+    if what == "X":
+        batch = dict(inputs["batch"], X=inputs["batch"]["X"] * np.float32(factor))
+        return mesh_steps(None, inputs, torch.float32, batch)
+    weights = {k: v * v.dtype.type(factor) if v.dtype.kind == "f" else v
+               for k, v in inputs["state"].items()}
+    return mesh_steps(None, inputs, torch.float32, inputs["batch"], weights)
+
+
+def mesh_paths(mesh, inputs, out):
+    """The three paths on ``mesh`` (None: one process, no mesh), with this
+    process's kernel launches asserted on each: (a) dmri_hippo's train step
+    (``mesh_steps``) in f32 and bf16, (b) hippo_inference --ensemble-flips
+    --batched-tta [--tta-mesh] on one fold into ``out`` (rank 0 writes),
+    (c) the msseg2 competition predictor's request (probabilities) on the
+    model-space subject, one untimed and one timed. Returns the steps'
+    results, the probabilities, the times and each path's seconds."""
+    world = 1 if mesh is None else mesh.size
+    if mesh is not None:
+        # the trainer's stop vote, on the host (under NCCL over a gloo group
+        # of the same ranks)
+        assert not any_rank(False, mesh) and any_rank(True, mesh)
+    marks = [time.perf_counter()]
+    result = {f"step {DTYPE_NAMES[dtype]}": mesh_steps(mesh, inputs, dtype, inputs["batch"])
+              for dtype in DTYPES}
+    os.makedirs(out, exist_ok=True)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    cli_hippo.main(inputs["ensemble"], inputs["root"], "cli", out_folder=out,
+                   ensemble_flips=True, batched_tta=True, tta_mesh=mesh is not None,
+                   cohort=CLI_HIPPO_COHORT)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    result["hippo_ms"] = (marks[-1] - marks[-2]) * 1e3
+    assert launch_counts()["fwd"] == expected_launches(torch.float32, 1, TTA_BATCH // world)
+    model = msseg2_model(inputs["seed"], "cuda")
+    predictor = competition_predictor()
+    predictor.mesh = mesh
+    subject = Subject({"X": ScalarImage(tensor=inputs["ms_x"], affine=inputs["ms_affine"])})
+    locations = len(grid_locations(inputs["ms_x"].shape[1:], (MS_PATCH,) * 3,
+                                   (MS_PATCH // 2,) * 3))
+    for call in ("untimed", "timed"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        [served], _ = predictor.predict(model, [copy.deepcopy(subject)])
+        torch.cuda.synchronize()
+        result["ms_ms"] = (time.perf_counter() - t0) * 1e3
+        assert conv3x3_s1p1.launches == -(-locations // world) * MS_CONVS_PER_FORWARD, \
+            conv3x3_s1p1.launches
+    result["ms_launches"] = conv3x3_s1p1.launches
+    result["probabilities"] = np.asarray(served["y_pred"].data)
+    marks.append(time.perf_counter())
+    result["parts_s"] = [b - a for a, b in zip(marks, marks[1:])]
+    return result
+
+
+def mesh_rank(folder):
+    """One rank of the gloo world (``--mesh-rank``), in a process that the
+    port's launcher started and joined to the group: run the paths on the
+    mesh over the group on the inputs in ``folder``, and leave the result
+    (or the traceback) there."""
+    stamps = [time.time()]  # joined, ready, ran the paths
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    try:
+        build.build(conv3x3.SOURCES)
+        mesh = tsp.make_mesh()
+        with open(os.path.join(folder, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        stamps.append(time.time())
+        result = mesh_paths(mesh, inputs, os.path.join(folder, "hippo"))
+        stamps.append(time.time())
+        result.update(stamps=stamps, threads=torch.get_num_threads())
+        with open(os.path.join(folder, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(os.path.join(folder, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    return 0
+
+
+def gloo_world(inputs, folder, world=MESH_WORLD):
+    """``world`` ranks on the card, started by the port's launcher
+    (``launch_multihost.launch_local``: spawned, joined through a
+    rendezvous file, each on its LOCAL_RANK's card, the host's cores
+    shared), each running this script with ``--mesh-rank``; joined before
+    this returns, their results in rank order. A rank that fails or
+    outlives MESH_TIMEOUT_S fails the phase. The inputs go through a file:
+    spawn's arguments pass through a pipe that the child reads only after
+    its imports, so large arguments would start the ranks one after the
+    other."""
+    os.makedirs(folder)
+    with open(os.path.join(folder, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    try:
+        launch_multihost.launch_local(world, "gloo", MESH_TIMEOUT_S, "chip_smoke",
+                                      ["--mesh-rank", folder], join_timeout=MESH_TIMEOUT_S)
+    except SystemExit as failed:
+        errors = [os.path.join(folder, f"rank{r}.err") for r in range(world)]
+        raise AssertionError("\n".join([str(failed)] + [open(e).read() for e in errors
+                                                        if os.path.exists(e)])) from None
+    results = []
+    for r in range(world):
+        with open(os.path.join(folder, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def nccl_world(inputs, folder):
+    """World size 1 under NCCL in this process (NCCL refuses a second rank
+    on the same card)."""
+    torch.distributed.init_process_group(
+        MESH_NCCL_BACKEND, init_method=f"file://{os.path.join(folder, 'rendezvous')}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        return mesh_paths(tsp.make_mesh(), inputs, os.path.join(folder, "hippo"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def flat_gaps(runs, ref, key):
+    """After each step, the largest |run - ref| / |ref| over ``runs`` of the
+    flat vectors under ``key`` (the gradient, the weights or the update)."""
+    return [max(float(np.linalg.norm(run[key][k].astype(np.float64) - want)
+                      / np.linalg.norm(want.astype(np.float64))) for run in runs)
+            for k, want in enumerate(ref[key])]
+
+
+def gap_text(gaps):
+    return "/".join(f"{g:.3e}" for g in gaps)
+
+
+def mesh_checks(card, label, runs, one, floor):
+    """Each rank's run of a world against the one process: the losses, the
+    f32 gradient and update after each step (beside ``floor``, the farthest
+    that a nudge moves the one process from itself), the msseg2
+    probabilities and mask; printed, then asserted."""
+    loss_gaps = {}
+    for dtype in DTYPES:
+        key = f"step {DTYPE_NAMES[dtype]}"
+        want = np.array(one[key]["losses"])
+        loss_gaps[dtype] = max(float(np.max(np.abs(np.array(run[key]["losses"]) - want) / want))
+                               for run in runs)
+    f32 = [run["step f32"] for run in runs]
+    gaps = {key: flat_gaps(f32, one["step f32"], key) for key in ("grads", "updates", "weights")}
+    ranks_equal = all(np.array_equal(run["weights"][-1], f32[0]["weights"][-1]) for run in f32)
+    prob_gap = max(float(np.abs(run["probabilities"] - one["probabilities"]).max())
+                   for run in runs)
+    mask_ref = np.argmax(one["probabilities"], 0)
+    mask_diff = max(int((np.argmax(run["probabilities"], 0) != mask_ref).sum()) for run in runs)
+    print(f"mesh {label}: f32 losses " + ", ".join(
+        f"{v:.7f}" for v in runs[0]["step f32"]["losses"]) + " against one process "
+        + ", ".join(f"{v:.7f}" for v in one["step f32"]["losses"]) + "; bf16 "
+        + ", ".join(f"{v:.6f}" for v in runs[0]["step bf16"]["losses"]) + " against "
+        + ", ".join(f"{v:.6f}" for v in one["step bf16"]["losses"])
+        + f"; largest relative loss gap f32 {loss_gaps[torch.float32]:.3e}, bf16 "
+        f"{loss_gaps[torch.bfloat16]:.3e}; f32 |mesh - one| / |one| after steps 1/2/3: "
+        f"gradient {gap_text(gaps['grads'])} (farthest nudge {gap_text(floor['grads'])}), "
+        f"update {gap_text(gaps['updates'])} (farthest nudge {gap_text(floor['updates'])}), "
+        f"weights {gap_text(gaps['weights'])}; the ranks' weights equal: {ranks_equal}; "
+        f"msseg2 probabilities max |mesh - one| {prob_gap:.3e}, mask voxels that differ "
+        f"{mask_diff} of {mask_ref.size} [{card}]", flush=True)
+    for dtype in DTYPES:
+        assert loss_gaps[dtype] <= MESH_LOSS_RTOL[dtype], (label, dtype, loss_gaps[dtype])
+        key = f"step {DTYPE_NAMES[dtype]}"
+        assert all(run[key]["launches"] == [CONVS_PER_FORWARD, DX_PER_STEP, CONVS_PER_FORWARD]
+                   for run in runs), label
+    for key in ("grads", "updates"):
+        assert all(gap <= max(MESH_PARAM_TOL, low) for gap, low in zip(gaps[key], floor[key])), \
+            (label, key, gaps[key], floor[key])
+    assert ranks_equal, label
+    assert prob_gap <= MESH_PROB_TOL and mask_diff == 0, (label, prob_gap, mask_diff)
+
+
+def mesh_phase(card, seed, root, tmp):
+    """The data-parallel paths at world size 2 (gloo, two processes on the
+    card) and 1 (NCCL, this process) against one process without a mesh."""
+    t0 = time.perf_counter()
+    inputs = mesh_inputs(seed, root, tmp)
+    print(f"mesh: inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    one = mesh_paths(None, inputs, os.path.join(tmp, "mesh-one", "hippo"))
+    # how far the one process moves from itself when one input moves by
+    # one rounding
+    t0 = time.perf_counter()
+    nudged = {nudge: nudged_steps(inputs, *nudge) for nudge in MESH_NUDGES}
+    floors = {nudge: {key: flat_gaps([run], one["step f32"], key)
+                      for key in ("grads", "updates")} for nudge, run in nudged.items()}
+    floor = {key: [max(f[key][k] for f in floors.values()) for k in range(MESH_STEPS)]
+             for key in ("grads", "updates")}
+    nudged_s = time.perf_counter() - t0
+    print("mesh: the one process against itself, f32 |nudged - one| / |one| after steps "
+          "1/2/3: " + "; ".join(
+              f"{what} x (1 {'+' if factor > 1 else '-'} 2**-23): gradient "
+              f"{gap_text(f['grads'])}, update {gap_text(f['updates'])}"
+              for (what, factor), f in floors.items()) + f" [{card}]", flush=True)
+    t0, spawned = time.perf_counter(), time.time()
+    gloo = gloo_world(inputs, os.path.join(tmp, "mesh-gloo"))
+    gloo_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(tmp, "mesh-nccl"))
+    nccl = nccl_world(inputs, os.path.join(tmp, "mesh-nccl"))
+    mesh_checks(card, f"gloo world {MESH_WORLD}", gloo, one, floor)
+    mesh_checks(card, "nccl world 1", [nccl], one, floor)
+    names = sorted(n for n in os.listdir(os.path.join(root, "subjects"))
+                   if n.startswith("cbbrain"))[:HIPPO_SUBJECTS["validation"]]
+    labels = {side: hippo_outputs(os.path.join(tmp, f"mesh-{side}", "hippo"), root, names,
+                                  "dmri-hippo") for side in ("one", "gloo", "nccl")}
+    for side in ("gloo", "nccl"):
+        differ = sum(int((a != b).sum()) for a, b in zip(labels[side], labels["one"]))
+        print(f"mesh (b) hippo_inference --tta-mesh {side}: {differ} voxels of "
+              f"{len(names)} subjects' labels differ from the one process's [{card}]",
+              flush=True)
+        assert differ == 0, side
+    med = statistics.median
+    for dtype in DTYPES:
+        key = f"step {DTYPE_NAMES[dtype]}"
+        print(f"mesh (a) train step {DTYPE_NAMES[dtype]}, global batch {MESH_BATCH}: one "
+              f"process {med(one[key]['ms']):.3f} ms a step; gloo world {MESH_WORLD} "
+              + ", ".join(f"rank {r} {med(run[key]['ms']):.3f}" for r, run in enumerate(gloo))
+              + f" ms ({MESH_BATCH // MESH_WORLD} subjects a rank, "
+              f"{'/'.join(map(str, gloo[0][key]['launches']))} launches a step on each rank); "
+              f"nccl world 1 {med(nccl[key]['ms']):.3f} ms (medians of {MESH_STEPS}) "
+              f"[{card}]", flush=True)
+    print(f"mesh (b) hippo_inference --ensemble-flips --batched-tta, one fold, "
+          f"{len(names)} subjects: one process {one['hippo_ms']:.1f} ms; --tta-mesh gloo world "
+          f"{MESH_WORLD} " + ", ".join(f"rank {r} {run['hippo_ms']:.1f}"
+                                       for r, run in enumerate(gloo))
+          + f" ms (one forward of {CONVS_PER_FORWARD} launches at N="
+          f"{TTA_BATCH // MESH_WORLD} on each rank); nccl world 1 {nccl['hippo_ms']:.1f} ms "
+          f"[{card}]", flush=True)
+    print(f"mesh (c) msseg2 PatchPredict request on {'x'.join(map(str, MS_RAW_GRID))} "
+          f"({'x'.join(map(str, inputs['ms_x'].shape[1:]))} in model space), f32: one process "
+          f"{one['ms_ms']:.1f} ms; gloo world {MESH_WORLD} "
+          + ", ".join(f"rank {r} {run['ms_ms']:.1f} ms ({run['ms_launches']} launches)"
+                      for r, run in enumerate(gloo))
+          + f"; nccl world 1 {nccl['ms_ms']:.1f} ms [{card}]", flush=True)
+    parts = " / ".join(f"{v:.1f}" for v in one["parts_s"])
+    print(f"mesh: seconds of (a) / (b) / (c): one process {parts}; gloo " + "; ".join(
+        f"rank {r} " + " / ".join(f"{v:.1f}" for v in run["parts_s"]) for r, run in
+        enumerate(gloo)) + f"; nccl " + " / ".join(f"{v:.1f}" for v in nccl["parts_s"])
+        + f"; the nudged f32 steps {nudged_s:.1f}; the gloo world {gloo_s:.1f} from the "
+        f"launch to the join (" + "; ".join(
+            f"rank {r} joined at {run['stamps'][0] - spawned:.1f}, ready at "
+            f"{run['stamps'][1] - spawned:.1f}, done at {run['stamps'][2] - spawned:.1f}, "
+            f"{run['threads']} CPU threads" for r, run in enumerate(gloo))
+        + f"); both ranks share the one card, so no speed-up is expected [{card}]",
+        flush=True)
+
+
 def descendants(pid=None) -> list:
     """The live processes below ``pid`` (this process by default), read
     from /proc; a zombie has ended and is left out."""
@@ -4168,6 +4505,12 @@ def run_phases(args, card):
           CONV_CLASSES)
     phase("orientation grids", check_orientation_grids, device, args.seed, card)
     grad_rows = phase("gradient kernels", grad_kernel_phase, device, half_batch, args.seed, card)
+    # the mesh phase's step at N=16 (one process and NCCL's world 1: a
+    # global batch of MESH_BATCH subjects, split) and its TTA forward at
+    # N=16 on each of its 2 ranks
+    phase("kernels N=16", lambda: (
+        check_classes(device, args.seed + 16, card, 2 * MESH_BATCH, CONV_CLASSES),
+        grad_kernel_phase(device, 2 * MESH_BATCH, args.seed + 16, card, timing=None)))
     ms_rows = phase("msseg2 kernels", kernel_phase, device, 1, args.seed + 6, card,
                     MS_CONV_CLASSES)
     phase("msseg2 large class", check_classes, device, args.seed + 8, card, MS_LARGE_BATCH,
@@ -4223,6 +4566,7 @@ def run_phases(args, card):
             qsm_rows = phase("qsm-dwi", qsm_dwi_phase, card, args.seed, root, tmp, drop, device)
             cascade_rows = phase("cascade-cleanup", cascade_cleanup_phase, card, args.seed, root,
                                  ms_root, tmp, drop, device)
+            phase("mesh", mesh_phase, card, args.seed, root, tmp)
     finally:
         shutil.rmtree(ms_root)
 
@@ -4237,10 +4581,15 @@ def main() -> int:
     parser.add_argument("--compare", nargs="+", metavar="CHECKOUT",
                         help="only time msseg2 competition requests in each checkout given "
                              "(compare_requests), e.g. parent . . parent")
+    parser.add_argument("--mesh-rank", metavar="FOLDER",
+                        help="run one rank of the mesh phase's gloo world on the inputs in "
+                             "FOLDER (the phase starts its ranks so, through launch_multihost)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank)
 
     card = card_line()
     print(card, flush=True)

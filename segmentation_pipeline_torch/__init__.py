@@ -20,7 +20,10 @@ refined predictions); the native connected-component labeller (native.py)
 and the device morphology, instance and confusion reductions (fused
 cleanup in PatchPredict, the trainer's device-reduced sweeps); affine TTA
 (EnsembleAffines), the loaders' process workers, the dataset fingerprint,
-the native NIfTI reader, and the tensorboard, image and wandb loggers. The
+the native NIfTI reader, and the tensorboard, image and wandb loggers;
+data-parallel meshes over torch.distributed (parallel/: make_mesh,
+MeshRecipe, the mesh train step and trainer, the sharded TTA ensembles and
+sliding window). The
 configurations of dmri_hippo and msseg2 live in
 ``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
 and weight gradients run on hand-written CUDA kernels
@@ -45,6 +48,7 @@ from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, Nest
                      StochasticMatrix, WSConv3d, flax_to_state_dict, state_dict_to_flax)
 from .models.ensemble import (EnsembleAffines, EnsembleFlips, EnsembleModels,
                               EnsembleOrientations)
+from .parallel.mesh import MeshRecipe, make_mesh
 from .post_processing import (keep_components, remove_holes, remove_small_components,
                               sort_by_size, unsort_by_size)
 from .prediction import (PatchPredict, Predictor, StandardPredict, add_evaluation_labels,
@@ -62,6 +66,6 @@ from .utils.misc import (auto_str, filter_kwargs, flatten_nested_dict, no_op, ra
 from .utils.nn_unet_convert import save_dataset_as_nn_unet
 from .utils.timer import Timer
 from .visualizations import vis_features, vis_model, vis_subject
-from . import native, ops, post_processing  # noqa: F401
+from . import native, ops, parallel, post_processing  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,7 +1,6 @@
 """Device-resident training data: the host link leaves the hot loop.
 
-Ported from segmentation_pipeline_tpu/data/device_cache.py (one device, no
-mesh). With a deterministic host pipeline (pretransformed once), the whole
+Ported from segmentation_pipeline_tpu/data/device_cache.py. With a deterministic host pipeline (pretransformed once), the whole
 training set is uploaded ONCE and each iteration's batch becomes an index
 gather on the device; the host sends a few int64 indices per batch. Pair it
 with the trainer's ``device_augmentation`` so that the augmentations still
@@ -12,6 +11,11 @@ are exactly one-hot as uint8 class ids (S, W, H, D), expanded back on the
 device (bit-identical), other labels as float32 channels-last.
 ``DevicePatchCache`` adds each subject's patch-centre CDF and draws the
 patches of a batch on the device.
+
+On a ``mesh`` (parallel/mesh.py) the cache is replicated: each rank holds
+all of it on its own device, is given the global batch's subject ids and
+cuts its rows of the batch; patch centres are drawn for the global batch,
+so the rows equal the one-device batch's.
 """
 from __future__ import annotations
 
@@ -67,9 +71,10 @@ def _budget(total: int, max_bytes: int, what: str):
 class DeviceDataCache:
     """Whole volumes of uniform shape on the device; ``gather`` cuts a batch."""
 
-    def __init__(self, subjects: Sequence, x_dtype=None, device=None,
+    def __init__(self, subjects: Sequence, x_dtype=None, device=None, mesh=None,
                  max_bytes: int = 8 * 2 ** 30, expand_onehot: bool = True):
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
         try:
             X = np.stack([np.asarray(s["X"].data) for s in subjects])
             y = np.stack([np.asarray(s["y"].data) for s in subjects])
@@ -95,7 +100,10 @@ class DeviceDataCache:
         """Subject ids -> channels-last device batch {'X': (N, W, H, D, C)
         in the storage dtype, 'y': (N, W, H, D, C) float32}; with
         ``expand_onehot=False`` one-hot labels stay uint8 class ids
-        (N, W, H, D), the input form of the device augmentation."""
+        (N, W, H, D), the input form of the device augmentation. On a mesh,
+        ``indices`` are the global batch's and the batch is this rank's rows."""
+        if self.mesh is not None:
+            indices = list(indices)[self.mesh.rows(len(indices))]
         idx = _indices(indices, self.device)
         xb = self._X.index_select(0, idx)
         yb = self._y.index_select(0, idx)
@@ -119,11 +127,12 @@ class DevicePatchCache:
     extent, so padded voxels never enter a patch.
     """
 
-    def __init__(self, subjects: Sequence, sampler, x_dtype=None, device=None,
+    def __init__(self, subjects: Sequence, sampler, x_dtype=None, device=None, mesh=None,
                  max_bytes: int = 12 * 2 ** 30, expand_onehot: bool = True):
         from .loader import UniformSampler, WeightedSampler
 
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
         patch_size = np.asarray(sampler.patch_size)
         self.patch_size = tuple(int(p) for p in patch_size)
 
@@ -197,8 +206,13 @@ class DevicePatchCache:
         """subject_indices: (N,) ids; generator: on the cache's device ->
         (batch, starts): batch = {'X': (N, pw, ph, pd, C), 'y': one-hot
         float32, or uint8 class ids (N, pw, ph, pd) with
-        ``expand_onehot=False``}, starts = (N, 3) device patch starts."""
+        ``expand_onehot=False``}, starts = (N, 3) device patch starts. On a
+        mesh the ids are the global batch's, the uniforms are drawn for all
+        of them, and the batch and starts are this rank's rows."""
         u = torch.rand(len(subject_indices), generator=generator, device=generator.device)
+        if self.mesh is not None:
+            rows = self.mesh.rows(len(subject_indices))
+            subject_indices, u = list(subject_indices)[rows], u[rows]
         return self.sample_at(subject_indices, u)
 
     def sample_at(self, subject_indices, u: torch.Tensor):

@@ -189,6 +189,11 @@ class BatchNorm(nn.Module):
     Inside ``statistics_frozen`` a train-mode forward normalizes as always
     but leaves the running statistics alone: the recompute of a
     rematerialized block must not move them a second time.
+
+    Inside ``data_parallel`` (a mesh's train step) the statistics are those
+    of the global batch, as GSPMD computes them in the JAX package: each
+    rank's sums of x and x^2 are summed over the mesh by a differentiable
+    all-reduce, so the running statistics move alike on every rank.
     """
 
     MOMENTUM = 0.9
@@ -202,6 +207,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.frozen = False
+        self.shard = None  # a parallel.mesh.BatchShard inside data_parallel
 
     def reset_parameters(self):
         with torch.no_grad():
@@ -218,8 +224,17 @@ class BatchNorm(nn.Module):
             return y.permute(0, 2, 3, 4, 1)
         xf = x.float()
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        if self.shard is None:
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        else:
+            from ..parallel.mesh import all_reduce_sum
+
+            count = xf.numel() // xf.shape[-1] * self.shard.n_global // xf.shape[0]
+            sums = all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]),
+                                  self.shard.mesh) / count
+            mean = sums[0]
+            var = torch.clamp(sums[1] - mean * mean, min=0.0)
         if not self.frozen:
             with torch.no_grad():
                 self.running_mean.copy_(self.MOMENTUM * self.running_mean
@@ -245,16 +260,40 @@ def statistics_frozen(module: nn.Module):
             m.frozen = False
 
 
-def channel_dropout(x: torch.Tensor, p: float,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, shard):
+    """Inside the block, ``module`` runs a rank's rows of a global batch
+    (``shard``, a parallel.mesh.BatchShard): every BatchNorm normalizes with
+    the global batch's statistics and every Block3d's channel dropout keeps
+    its rows of the global batch's masks. Wrap the backward pass too: the
+    recompute of a rematerialized block runs there."""
+    members = [m for m in module.modules() if isinstance(m, (BatchNorm, Block3d))]
+    for m in members:
+        m.shard = shard
+    try:
+        yield
+    finally:
+        for m in members:
+            m.shard = None
+
+
+def channel_dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+                    shard=None) -> torch.Tensor:
     """Drop whole channels of a channels-last (N, W, H, D, C) tensor with
     probability p, scaling the kept ones by 1 / (1 - p): one draw per
     (sample, channel) from ``generator``, as flax's ``nn.Dropout(rate=p,
-    broadcast_dims=(1, 2, 3))`` draws from its explicit key."""
+    broadcast_dims=(1, 2, 3))`` draws from its explicit key. With a
+    ``shard`` (parallel.mesh.BatchShard) x holds its rows of a global batch:
+    the masks of the whole global batch are drawn and its rows kept, so a
+    mesh step drops what the one-device step drops."""
     if generator is None:
         raise ValueError("channel dropout in train mode needs a torch.Generator")
     n, c = x.shape[0], x.shape[-1]
-    keep = torch.rand((n, 1, 1, 1, c), generator=generator, device=x.device) >= p
+    if shard is None:
+        keep = torch.rand((n, 1, 1, 1, c), generator=generator, device=x.device) >= p
+    else:
+        keep = torch.rand((shard.n_global, 1, 1, 1, c), generator=generator,
+                          device=x.device)[shard.rows] >= p
     return x * keep / (1.0 - p)
 
 
@@ -278,6 +317,7 @@ class Block3d(nn.Module):
         self.res_conv = (Conv3d(in_channels, features, kernel_size=3, padding=1)
                          if residual else None)
         self.dropout_p = dropout_p
+        self.shard = None  # a parallel.mesh.BatchShard inside data_parallel
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -290,7 +330,7 @@ class Block3d(nn.Module):
         if self.res_conv is not None:
             x = self.res_conv(x_in) + x
         if self.training and self.dropout_p > 0.0:
-            x = channel_dropout(x, self.dropout_p, generator)
+            x = channel_dropout(x, self.dropout_p, generator, self.shard)
         return x
 
 

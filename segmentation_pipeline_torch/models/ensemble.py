@@ -11,13 +11,14 @@ the device that ``x`` is on; nothing goes to the host.
 Two execution modes:
 
 - unrolled (default): each member is a separate forward;
-- batched (``batched=True``): the members are folded into the batch and run
-  in one forward (for EnsembleOrientations, the 8 flips of each permutation).
-  In eval mode BatchNorm uses its running statistics and dropout is off, so
-  folding changes no sample's arithmetic: the result is the unrolled one.
-
-The JAX package's ``mesh=`` (sharding the folded batch over devices) is
-not ported yet (ROADMAP item 10a): ``EnsembleAffines(mesh=...)`` raises.
+- batched (``batched=True`` or ``mesh=...``): the members are folded into
+  the batch and run in one forward (for EnsembleOrientations, the 8 flips of
+  each permutation). In eval mode BatchNorm uses its running statistics and
+  dropout is off, so folding changes no sample's arithmetic: the result is
+  the unrolled one. With a ``mesh`` (parallel/mesh.py) the folded batch is
+  padded with wrapped member rows to a multiple of the ranks, each rank runs
+  its rows, and an all-gather gives every rank the whole folded output
+  (padding dropped): every rank returns the same combination.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.augment import _affine_coords_oob, _sample, draw_affine_matrix
+from ..parallel.mesh import all_gather_rows
 
 
 def parse_strategy(strategy: str) -> str:
@@ -94,17 +96,35 @@ def _flip(x: torch.Tensor, dims) -> torch.Tensor:
     return torch.flip(x, dims=dims) if dims else x
 
 
+def _run_folded(model, stacked: torch.Tensor, mesh) -> torch.Tensor:
+    """``model`` on the folded member batch; on a mesh, this rank's rows of
+    it padded with wrapped rows to a multiple of the ranks (the rows of a
+    padding copy are dropped), gathered back on every rank."""
+    if mesh is None:
+        return model(stacked)
+    total = stacked.shape[0]
+    pad = (-total) % mesh.size
+    if pad:
+        wrap = torch.arange(pad, device=stacked.device) % total
+        stacked = torch.cat([stacked, stacked[wrap]])
+    y_all = all_gather_rows(model(stacked[mesh.rows(stacked.shape[0])]), mesh)
+    return y_all[:total]
+
+
 class EnsembleFlips:
     """TTA over all flip combinations of the chosen spatial dims; each
     prediction is un-flipped before combining. ``batched=True`` folds the
-    2^k flip members into the batch and runs them in one forward."""
+    2^k flip members into the batch and runs them in one forward; ``mesh``
+    also shards that folded batch over the mesh's ranks."""
 
     def __init__(self, model, strategy: str = "mean",
-                 spatial_dims: Sequence[int] = (2, 3, 4), batched: bool = False):
+                 spatial_dims: Sequence[int] = (2, 3, 4), batched: bool = False,
+                 mesh=None):
         self.model = model
         self.strategy = parse_strategy(strategy)
         self.spatial_dims = tuple(spatial_dims)
-        self.batched = batched
+        self.batched = batched or mesh is not None
+        self.mesh = mesh
         self.flips = []
         for order in range(len(self.spatial_dims) + 1):
             self.flips += list(itertools.combinations(self.spatial_dims, order))
@@ -114,7 +134,8 @@ class EnsembleFlips:
         if not self.batched:
             return [_flip(self.model(_flip(x, flip)), flip) for flip in self.flips]
         n = x.shape[0]
-        y_all = self.model(torch.cat([_flip(x, flip) for flip in self.flips], dim=0))
+        y_all = _run_folded(self.model, torch.cat([_flip(x, flip) for flip in self.flips]),
+                            self.mesh)
         return [_flip(y_all[i * n:(i + 1) * n], flip) for i, flip in enumerate(self.flips)]
 
     def __call__(self, x):
@@ -134,20 +155,18 @@ class EnsembleAffines:
     cannot be reproduced here, so the same ``seed`` draws other matrices
     than the JAX package; set ``matrices`` to reuse a given set.
     ``batched=True`` folds the K members into the batch and runs one
-    forward. Out-of-bounds input voxels take ``pad_value``."""
+    forward, and ``mesh`` also shards that folded batch over the mesh's
+    ranks. Out-of-bounds input voxels take ``pad_value``."""
 
     def __init__(self, model, num_members: int = 4, scales: float = 0.1,
                  degrees: float = 10.0, strategy: str = "mean", seed: int = 0,
                  include_identity: bool = True, pad_value: float = 0.0,
                  batched: bool = False, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EnsembleAffines(mesh=...) shards the folded batch over devices, which the "
-                "PyTorch port does not do yet: ROADMAP Queue 1 item 10a (multi-device)")
         self.model = model
         self.strategy = parse_strategy(strategy)
         self.pad_value = float(pad_value)
-        self.batched = batched
+        self.batched = batched or mesh is not None
+        self.mesh = mesh
         matrices = [np.eye(3, dtype=np.float32)] if include_identity else []
         if num_members > len(matrices):
             drawn = draw_affine_matrix(torch.Generator().manual_seed(seed),
@@ -189,7 +208,7 @@ class EnsembleAffines:
         warp = lambda c: x if c is None else self._warp_in(x, c[0], c[1])  # noqa: E731
         if self.batched:
             n = x.shape[0]
-            y_all = self.model(torch.cat([warp(c) for c in coords], dim=0))
+            y_all = _run_folded(self.model, torch.cat([warp(c) for c in coords]), self.mesh)
             outputs = [y_all[i * n:(i + 1) * n] for i in range(len(coords))]
         else:
             outputs = [self.model(warp(c)) for c in coords]
@@ -201,16 +220,18 @@ class EnsembleAffines:
 class EnsembleOrientations:
     """TTA over all 6 spatial permutations x 8 flips = 48 orientations. In
     batched mode the 8 flips of each permutation (one shape) run as one
-    forward: 48 member forwards become 6."""
+    forward: 48 member forwards become 6, each sharded over the ranks of a
+    ``mesh``."""
 
-    def __init__(self, model, strategy: str = "mean", batched: bool = False):
+    def __init__(self, model, strategy: str = "mean", batched: bool = False, mesh=None):
         self.model = model
         self.strategy = parse_strategy(strategy)
-        self.batched = batched
+        self.batched = batched or mesh is not None
+        self.mesh = mesh
         spatial_dims = (2, 3, 4)
         self.permutations = list(itertools.permutations(spatial_dims))
         self._flip_group = EnsembleFlips(model, strategy="mean", spatial_dims=spatial_dims,
-                                         batched=batched)
+                                         batched=batched, mesh=mesh)
 
     @property
     def flips(self):

@@ -605,11 +605,18 @@ def apply_augmentation(X: torch.Tensor, y: Optional[torch.Tensor],
 
 
 def augment_batch(generator: torch.Generator, X: torch.Tensor,
-                  y: Optional[torch.Tensor] = None, config: Optional[Dict] = None):
+                  y: Optional[torch.Tensor] = None, config: Optional[Dict] = None,
+                  shard=None):
     """Augment a channels-last batch: ``draw_augmentation`` from
     ``generator`` (on X's device), then ``apply_augmentation``. ``config``
     overrides DEFAULT_CONFIG; training/auto_augment.py derives it from a
-    declared host pipeline."""
+    declared host pipeline. With a ``shard`` (parallel.mesh.BatchShard) X
+    and y hold a rank's rows of a global batch: the draws of the whole
+    global batch are made and the rows' draws applied, so the rows come out
+    as the one-device batch's do."""
     cfg = resolve_config(config)
-    draws = draw_augmentation(generator, X.shape[0], tuple(X.shape[1:4]), X.shape[-1], cfg)
+    n = X.shape[0] if shard is None else shard.n_global
+    draws = draw_augmentation(generator, n, tuple(X.shape[1:4]), X.shape[-1], cfg)
+    if shard is not None:
+        draws = {k: v[shard.rows] for k, v in draws.items()}
     return apply_augmentation(X, y, draws, cfg)

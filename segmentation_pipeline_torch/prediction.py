@@ -22,6 +22,8 @@ from .core.subject import LabelMap, Subject, collate_subjects
 from .device import resolve_device
 from .ops.bitpack import argmax_ids, fetch_ids, idx_dtype_for, start_fetch
 from .ops.sliding_window import sliding_window_inference
+from .parallel.halo import distributed_sliding_window
+from .parallel.mesh import SPATIAL_ITEM, Mesh, MeshRecipe
 from .training.model import SegModel, to_channels_first, to_channels_last
 from .training.train_step import apply_stochastic_matrix_cl
 from .transforms.base import LabelTransform, apply_inverse_on_new_subject
@@ -251,6 +253,14 @@ class PatchPredict(Predictor):
     ``compute_dtype``; any other callable (an ensemble) gets channel-first
     patches. Out of device memory, the patch batch halves and stays halved
     for later subjects and calls.
+
+    With a ``mesh`` (parallel/mesh.py) each rank runs its share of each
+    subject's patch grid and one all-reduce merges the shares
+    (``distributed_sliding_window``); every rank then holds the whole
+    prediction and goes on as one device does. Pickled, the mesh is its
+    ``MeshRecipe``, rebuilt over the process group at the first predict
+    after loading, on the predictor's device. ``volume_sharded=True`` (a
+    W-sharded volume) waits for ROADMAP Queue 1 item 10b.
     """
 
     # a trainer's device-confusion plan for one sweep
@@ -265,10 +275,9 @@ class PatchPredict(Predictor):
                  cache_inputs: Optional[bool] = None,
                  device_postprocess: Optional[Sequence] = None,
                  device=None):
-        if mesh is not None or volume_sharded:
+        if volume_sharded:
             raise NotImplementedError(
-                "PatchPredict(mesh=..., volume_sharded=...) waits for the multi-device "
-                "slice (ROADMAP, Queue 1: multi-device)")
+                f"PatchPredict(volume_sharded=True) waits for the port of {SPATIAL_ITEM}")
         self.image_names = list(image_names)
         self.patch_batch_size = patch_batch_size
         self.patch_size = patch_size
@@ -279,15 +288,19 @@ class PatchPredict(Predictor):
         self.device_argmax = device_argmax
         self.cache_inputs = cache_inputs
         self.device_postprocess = list(device_postprocess) if device_postprocess else None
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def __getstate__(self):
         state = self.__dict__.copy()
         state.pop("_confusion_plan", None)
+        if isinstance(state.get("mesh"), Mesh):
+            state["mesh"] = MeshRecipe.of(state["mesh"])
         return state
 
     def __setstate__(self, state):
         # attributes newer than a pickled checkpoint
+        state.setdefault("mesh", None)
         state.setdefault("device_postprocess", None)
         state.setdefault("cache_inputs", None)
         state.setdefault("device_argmax", False)
@@ -361,6 +374,14 @@ class PatchPredict(Predictor):
         if isinstance(patch_size, int):
             patch_size = (patch_size,) * 3
         model_fn, dtype = self._model_fn(model)
+        if isinstance(self.mesh, MeshRecipe):
+            self.mesh = self.mesh.build(self.device)
+        if self.mesh is None:
+            window = sliding_window_inference
+        else:
+            def window(volume, fn, size, overlap, batch, mode):
+                return distributed_sliding_window(volume, fn, size, overlap, batch, mode,
+                                                  mesh=self.mesh)
 
         out_subjects, preds = [], []
         plan = self._confusion_plan if self.device_argmax else None
@@ -398,7 +419,7 @@ class PatchPredict(Predictor):
                                                                            dtype))
             else:
                 volume = self._upload(image.data, pad, padded, dtype)
-            y = self._run_with_batch_degrade(lambda bs: sliding_window_inference(
+            y = self._run_with_batch_degrade(lambda bs: window(
                 volume, model_fn, patch_size, self.patch_overlap, bs, self.overlap_mode))
             del volume
             # with one channel, the channel is the mask: an argmax would be 0

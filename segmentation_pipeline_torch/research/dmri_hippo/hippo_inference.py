@@ -10,11 +10,13 @@ CPU.
 
     python -m segmentation_pipeline_torch.research.dmri_hippo.hippo_inference \
         <ensemble_dir> <dataset> <run_name> [--ensemble-flips] [--ensemble-folds] \
-        [--ensemble-affines N] [--batched-tta] [--bf16] [--cohort X] [--out-folder OUT] \
-        [--device cpu]
+        [--ensemble-affines N] [--batched-tta] [--tta-mesh] [--bf16] [--cohort X] \
+        [--out-folder OUT] [--device cpu]
 
-``--tta-mesh`` raises before any work, naming the ROADMAP item that brings
-it.
+``--tta-mesh`` shards each fold's folded TTA batch over the ranks of the
+process group (``make_mesh()``; start the ranks with
+``segmentation_pipeline_torch.research.scripts.launch_multihost``). Every
+rank computes the same labels; rank 0 writes the files.
 """
 import argparse
 import json
@@ -24,9 +26,9 @@ import numpy as np
 
 from ...core.subject import Subject
 from ...models.ensemble import EnsembleAffines, EnsembleFlips, EnsembleModels
+from ...parallel.mesh import make_mesh
 from ...post_processing import keep_components, remove_holes
 from ...training.context import Context, list_checkpoint_files
-from ...training.trainer import _not_ported
 from ...transforms.base import invert_records
 
 
@@ -93,10 +95,10 @@ def post_process_subjects(subjects, image_name):
 
 
 def load_contexts(ensemble_path, dataset_path, ensemble_flips=False, batched_tta=False,
-                  bf16=False, device=None, ensemble_affines=0):
+                  bf16=False, device=None, ensemble_affines=0, mesh=None):
     """One context per checkpoint file, with its model, trainer and
     dataset, the model wrapped in flip TTA and then in affine TTA of
-    ``ensemble_affines`` members when asked."""
+    ``ensemble_affines`` members when asked, each sharded over ``mesh``."""
     contexts = []
     for file_path in list_checkpoint_files(Path(ensemble_path)):
         context = Context(device, file_path=file_path,
@@ -108,12 +110,12 @@ def load_contexts(ensemble_path, dataset_path, ensemble_flips=False, batched_tta
             context.model.compute_dtype = "bfloat16"
         if ensemble_flips:
             context.model = EnsembleFlips(context.model, strategy="majority",
-                                          spatial_dims=(3, 4), batched=batched_tta)
+                                          spatial_dims=(3, 4), batched=batched_tta, mesh=mesh)
         if ensemble_affines:
             # composes with flip TTA when both are asked for
             context.model = EnsembleAffines(context.model, num_members=ensemble_affines,
                                             scales=0.1, degrees=10, strategy="majority",
-                                            batched=batched_tta)
+                                            batched=batched_tta, mesh=mesh)
         contexts.append(context)
     return contexts
 
@@ -122,8 +124,6 @@ def main(ensemble_path, dataset_path, run_name, output_filename=None, out_folder
          ensemble_flips=False, ensemble_folds=False, cohort=None, num_workers=0,
          batch_size=4, batched_tta=False, tta_mesh=False, ensemble_affines=0,
          bf16=False, device=None):
-    if tta_mesh:
-        raise _not_ported("--tta-mesh (flip TTA sharded over devices)", "item 10 (multi-device)")
     input_args = dict(ensemble_path=str(ensemble_path), dataset_path=str(dataset_path),
                       run_name=run_name, output_filename=output_filename,
                       out_folder=str(out_folder), ensemble_flips=ensemble_flips,
@@ -132,8 +132,13 @@ def main(ensemble_path, dataset_path, run_name, output_filename=None, out_folder
                       batched_tta=batched_tta, tta_mesh=tta_mesh,
                       ensemble_affines=ensemble_affines, bf16=bf16)
 
+    # batched_tta folds the TTA members into one forward; tta_mesh also
+    # shards that folded batch over the process group's ranks
+    mesh = make_mesh(device=device) if tta_mesh else None
+    # every rank computes the same labels; one writes them
+    writes = mesh is None or mesh.rank == 0
     contexts = load_contexts(ensemble_path, dataset_path, ensemble_flips, batched_tta, bf16,
-                             device, ensemble_affines)
+                             device, ensemble_affines, mesh)
     print("Loaded models.")
 
     if ensemble_folds:
@@ -153,11 +158,14 @@ def main(ensemble_path, dataset_path, run_name, output_filename=None, out_folder
 
         base_file_name = generate_file_name(context, output_filename)
         report_path = Path(out_folder) / (base_file_name + ".txt")
-        # truncated once per run, then appended per batch
-        report_path.write_text("")
+        if writes:
+            # truncated once per run, then appended per batch
+            report_path.write_text("")
         for subjects in dataloader:
             subjects = inference(subjects, context.trainer.validation_predictor,
                                  context.model)
+            if not writes:
+                continue
             save_subjects_predictions(subjects, out_folder,
                                       base_file_name + "_before_processing")
             txt_output = post_process_subjects(subjects, "y_pred")
@@ -166,6 +174,8 @@ def main(ensemble_path, dataset_path, run_name, output_filename=None, out_folder
                 f.write(txt_output)
             save_subjects_predictions(subjects, out_folder, base_file_name)
 
+    if not writes:
+        return
     base_file_name = generate_file_name(contexts[-1], output_filename)
     with open(Path(out_folder) / (run_name + ".json"), "w") as f:
         settings = dict(input_args)
@@ -191,7 +201,7 @@ def build_parser():
     parser.add_argument("--batched-tta", action="store_true",
                         help="fold TTA members into one forward")
     parser.add_argument("--tta-mesh", action="store_true",
-                        help="shard the folded TTA batch over devices (not ported yet)")
+                        help="shard the folded TTA batch over the process group's ranks")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 forward (float32 weights); omit for float32")
     parser.add_argument("--device", default=None,

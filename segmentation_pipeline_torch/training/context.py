@@ -12,12 +12,14 @@ then.
 A component that is an ``nn.Module`` is wrapped in ``SegModel`` on the
 context's device (``None`` means the card). A context loaded from a file
 also puts the predictors among its components' params on its own device,
-wherever the checkpoint was written. ``snapshot`` takes host copies,
-as numpy, of every component's state: the model's tensors, the torch
-optimizer's moments and the trainer's counters all change in place while
-training goes on, and a checkpoint written later from the snapshot must
-hold the state of its own iteration. Numpy states also load where there is
-no GPU.
+wherever the checkpoint was written. A mesh among the params
+(parallel/mesh.py) is stored as its ``MeshRecipe`` and rebuilt on load over
+the loading process's process group, on the context's device. ``snapshot``
+takes host copies, as numpy, of every component's state: the model's
+tensors, the torch optimizer's moments and the trainer's counters all
+change in place while training goes on, and a checkpoint written later from
+the snapshot must hold the state of its own iteration. Numpy states also
+load where there is no GPU.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import Mesh, MeshRecipe
 from .model import SegModel
 
 
@@ -67,6 +70,8 @@ class _FunctionPayload:
 
 
 def _make_picklable(value):
+    if isinstance(value, Mesh):
+        return MeshRecipe.of(value)
     if isinstance(value, dict):
         return {k: _make_picklable(v) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
@@ -79,15 +84,19 @@ def _make_picklable(value):
         return _FunctionPayload.wrap(value)
 
 
-def _restore(value):
+def _restore(value, device=None):
+    """Params as a checkpoint stored them -> live objects: closures loaded,
+    mesh recipes built (on ``device``, default: this rank's card)."""
     if isinstance(value, _FunctionPayload):
         return value.load()
+    if isinstance(value, MeshRecipe):
+        return value.build(device)
     if isinstance(value, dict):
-        return {k: _restore(v) for k, v in value.items()}
+        return {k: _restore(v, device) for k, v in value.items()}
     if isinstance(value, list):
-        return [_restore(v) for v in value]
+        return [_restore(v, device) for v in value]
     if isinstance(value, tuple):
-        return tuple(_restore(v) for v in value)
+        return tuple(_restore(v, device) for v in value)
     return value
 
 
@@ -210,7 +219,7 @@ class Context:
     def _init_component(self, definition):
         name = definition["name"]
         constructor = definition["constructor"]
-        params = self._fix_params(_restore(definition["params"]))
+        params = self._fix_params(_restore(definition["params"], self.device))
         if self.from_file:
             self._place_predictors(params.values())
 

@@ -1,7 +1,7 @@
 """Per-batch host stage of the hybrid device-cache fast path.
 
-Ported from segmentation_pipeline_tpu/training/hybrid_augment.py (one
-device, no mesh). dmri_hippo's augmentation ablation puts
+Ported from segmentation_pipeline_tpu/training/hybrid_augment.py.
+dmri_hippo's augmentation ablation puts
 ``ReconstructMeanDWI`` at the start of the stochastic window
 (``research/dmri_hippo/configs/augmentation.py``, modes
 ``dwi_reconstruction`` and ``combined``). It has no device counterpart: it
@@ -25,6 +25,10 @@ the whole batch. Its work per subject of a batch is the peeled transforms
 (for ``ReconstructMeanDWI``, a mean over the at most ``num_dwis`` volumes it
 draws, gathered alone from the series) and the finishers on the regenerated
 channels (for dmri_hippo, ``RescaleIntensity``'s percentiles).
+
+On a ``mesh`` every rank regenerates the whole global batch, so the host
+draws stay those of the one-device run on every rank, and uploads its own
+rows.
 """
 from __future__ import annotations
 
@@ -45,11 +49,12 @@ class HybridHostAugment:
     ``upload_bytes`` holds the bytes of the last uploaded block."""
 
     def __init__(self, subjects: Sequence[Subject], spec: HybridSpec, x_dtype=None,
-                 device=None):
+                 device=None, mesh=None):
         self.subjects = list(subjects)
         self.spec = spec
         self.x_dtype = x_dtype
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
         self.upload_bytes = 0
         # the splice trusts the declared ConcatenateImages.image_channels:
         # check them once against the pretransformed data, or a mismatch
@@ -90,8 +95,11 @@ class HybridHostAugment:
     # ---- device side ---------------------------------------------------
     def apply(self, X: torch.Tensor, indices) -> torch.Tensor:
         """Splice the regenerated block into the gathered batch X (N, W, H,
-        D, C), in place; the upload does not block the host."""
+        D, C), in place; the upload does not block the host. On a mesh X
+        holds this rank's rows of the global batch of ``indices``."""
         block = self.regenerate(indices)
+        if self.mesh is not None:
+            block = block[self.mesh.rows(len(block))]
         self.upload_bytes = block.nbytes
         if self.device.type == "cuda":
             block = block.pin_memory().to(self.device, non_blocking=True)

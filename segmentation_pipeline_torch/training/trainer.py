@@ -1,8 +1,8 @@
 """SegmentationTrainer: the scheduled-evaluation training loop.
 
-Ported from segmentation_pipeline_tpu/training/trainer.py on one device (no
-mesh): iteration-based training with interval-scheduled evaluators over
-named cohorts, model scoring and best-checkpoint tracking, early stopping,
+Ported from segmentation_pipeline_tpu/training/trainer.py: iteration-based
+training with interval-scheduled evaluators over named cohorts, model
+scoring and best-checkpoint tracking, early stopping,
 a wall-clock budget with a save buffer, and cooperative
 SIGINT/SIGTERM/SIGUSR2 preemption, around the eager train step of
 training/train_step.py. The device levers of the configurations'
@@ -32,8 +32,19 @@ Dropout, device patch sampling and device augmentation draw from one
 ``torch.Generator`` on the model's device, seeded from the iteration the
 run starts at.
 
-What the JAX trainer also does and the port does not yet raises
-``NotImplementedError`` with the ROADMAP item that brings it.
+With a ``mesh`` (parallel/mesh.py, one process per device) the trainer
+trains data-parallel: every rank runs the same host code from the same
+seed, so every rank loads, or gathers from its replica of the device cache,
+the same global batch and draws the same augmentation, and keeps its rows;
+the step (training/train_step.py) sums the gradients of the global batch.
+The JAX package's single controller writes each checkpoint and log record
+once: here rank 0 writes them and the other ranks compute the same values
+and skip the writes. Scheduled training evaluators see the global batch's
+predictions, gathered from the ranks. Each iteration the ranks vote on
+stopping (the time budget, a stop signal), so all stop at one iteration.
+
+What the JAX trainer also does and the port does not yet (``spatial_axis``)
+raises ``NotImplementedError`` with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ from ..data.subject_filters import AnyFilter, RequireAttributes
 from ..evaluators import Evaluator
 from ..loggers import Logger, NonLogger
 from ..ops.bitpack import start_fetch
+from ..parallel.mesh import BatchShard, all_gather_rows, any_rank
 from ..prediction import Predictor, _attach_prediction, add_evaluation_labels
 from ..utils.misc import auto_str, time_str_to_seconds
 from ..utils.timer import Timer
@@ -139,11 +151,11 @@ def expand_ids(batch, n_classes):
     return batch
 
 
-def upload_batch(batch_cf, n_classes, device):
+def upload_batch(batch_cf, n_classes, device, mesh=None):
     """A host batch of ``stack_batch`` to the device, channels-last
-    (``collate_to_device``: pinned, without blocking the host), class ids
-    expanded there to float32 one-hot."""
-    batch = collate_to_device(batch_cf, device=device)
+    (``collate_to_device``: pinned, without blocking the host; on a mesh
+    this rank's rows), class ids expanded there to float32 one-hot."""
+    batch = collate_to_device(batch_cf, device=device, mesh=mesh)
     return batch if n_classes is None else expand_ids(batch, n_classes)
 
 
@@ -182,8 +194,8 @@ class SegmentationTrainer:
             raise ValueError(
                 f"device_augmentation={device_augmentation!r}: pass a config "
                 f"dict, {{}} for defaults, None, or 'auto'")
-        if mesh is not None or spatial_axis is not None:
-            raise _not_ported("mesh / spatial_axis", "item 10 (multi-device)")
+        if spatial_axis is not None:
+            raise _not_ported("spatial_axis (W-sharded training)", "item 10b (spatial sharding)")
         self.training_batch_size = training_batch_size
         self.save_rate = save_rate
         self.scoring_interval = scoring_interval
@@ -197,6 +209,9 @@ class SegmentationTrainer:
         self.validation_predictor = validation_predictor
         self.train_dataloader_factory = train_dataloader_factory
         self.validation_dataloader_factory = validation_dataloader_factory
+        # data-parallel training over a parallel.mesh.Mesh (one process per
+        # device); None trains on the model's device alone
+        self.mesh = mesh
         # mixed precision: the network runs forward and backward in this
         # dtype ('bfloat16'); parameters, optimizer state, BatchNorm
         # statistics and the loss stay float32. A string keeps the trainer
@@ -286,6 +301,14 @@ class SegmentationTrainer:
         state (moments, an accumulation's counters and gradients) carries
         over from a previous call in the process, as in the JAX package."""
         logger = logger or NonLogger()
+        mesh = self.mesh
+        if mesh is not None:
+            if self.training_batch_size % mesh.size:
+                raise ValueError(f"training_batch_size={self.training_batch_size} does not "
+                                 f"split over the {mesh.size} ranks of the mesh")
+            if mesh.rank != 0:
+                # rank 0 writes the checkpoints and the log records
+                logger = NonLogger()
         # a previous signal-stopped run must not stop this one
         EXIT.clear()
         prev_signal_handlers = None
@@ -419,7 +442,7 @@ class SegmentationTrainer:
         cache, index_iterator = None, None
         if self.device_cache:
             cache, index_iterator = self._build_cache(
-                training_dataset, device_aug, model.device, phases)
+                training_dataset, device_aug, model.device, phases, mesh)
             if cache._is_onehot and device_aug is not None:
                 compact["n_classes"] = cache.n_classes
         self._cache = cache  # exposed for measurements: its bytes, a sample() to time
@@ -439,10 +462,10 @@ class SegmentationTrainer:
                 batch_cf[refine_image] = np.stack(
                     [np.asarray(s[refine_image].data) for s in subjects]).astype(np.float32)
             if device_aug is None:
-                return subjects, upload_batch(batch_cf, n_classes, device=model.device)
+                return subjects, upload_batch(batch_cf, n_classes, model.device, mesh)
             # the device augmentation warps class ids and expands them after
             compact["n_classes"] = n_classes
-            return subjects, collate_to_device(batch_cf, device=model.device)
+            return subjects, collate_to_device(batch_cf, device=model.device, mesh=mesh)
 
         pending = None  # (subjects, device batch) prefetched last iteration
         deferred = None  # the loss record of a logging-only iteration
@@ -475,15 +498,17 @@ class SegmentationTrainer:
                         batch_stats=model.batch_stats,
                         opt_state=self._optimizer_for(model, optimizer))
                     train_step = make_train_step(model.module, criterion, optimizer,
-                                                 sagittal_split=sagittal_split,
+                                                 mesh=mesh, sagittal_split=sagittal_split,
                                                  compute_dtype=self.compute_dtype,
                                                  refine_image=refine_image)
 
                 if device_aug is not None:
                     from ..ops.augment import augment_batch
 
+                    shard = None if mesh is None else BatchShard.of(
+                        mesh, batch["X"].shape[0] * mesh.size)
                     batch["X"], batch["y"] = augment_batch(
-                        generator, batch["X"], batch["y"], config=device_aug)
+                        generator, batch["X"], batch["y"], config=device_aug, shard=shard)
                     batch = expand_ids(batch, compact["n_classes"])  # after the warp
                 self._train_state, loss_dict, y_pred_cl = train_step(
                     self._train_state, batch, generator)
@@ -532,11 +557,13 @@ class SegmentationTrainer:
                 if scheduled_train:
                     if callable(subjects):  # the cache's lazy batch subjects
                         subjects = subjects()
-                    y_pred_cf = to_channels_first(y_pred_cl).cpu().numpy()
+                    # the global batch's predictions, on a mesh gathered
+                    y_pred_cf = to_channels_first(all_gather_rows(y_pred_cl, mesh)).cpu().numpy()
                     if device_aug is not None:
                         # the prediction lives in the augmented geometry: the
                         # evaluators compare it with the augmented target
-                        y_aug_cf = to_channels_first(batch["y"]).cpu().numpy()
+                        y_aug_cf = to_channels_first(
+                            all_gather_rows(batch["y"], mesh)).cpu().numpy()
                     for i, subject in enumerate(subjects):
                         if device_aug is not None and "y" in subject:
                             subject["y"].set_data(
@@ -641,11 +668,17 @@ class SegmentationTrainer:
                           f"improving for {iterations_with_no_improvement} iterations.")
                     break
 
-                if EXIT.is_set() or time.time() > stop_time:
-                    if EXIT.is_set():
+                signalled, expired = EXIT.is_set(), time.time() > stop_time
+                # on a mesh the ranks start, and take a signal, apart: they
+                # stop at the same iteration, or one would wait for the
+                # others in the next step's collectives
+                if any_rank(signalled or expired, mesh):
+                    if signalled:
                         print("Training stopped early due to manual exit signal.")
-                    else:
+                    elif expired:
                         print("Training time expired.")
+                    else:
+                        print("Training stopped with another rank of the mesh.")
                     break
 
                 self.iteration += 1
@@ -723,7 +756,7 @@ class SegmentationTrainer:
         self._resolved_hybrid_spec = hybrid_spec
         return device_aug, probe_subject
 
-    def _build_cache(self, training_dataset, device_aug, device, phases):
+    def _build_cache(self, training_dataset, device_aug, device, phases, mesh=None):
         """The device cache of the pretransformed training set and the
         infinite stream of full batches of subject ids for it."""
         from ..data.device_cache import DeviceDataCache, DevicePatchCache
@@ -749,13 +782,13 @@ class SegmentationTrainer:
         self._hybrid_rt = None
         if isinstance(factory, StandardDataLoader):
             cache = DeviceDataCache(training_dataset.subjects, x_dtype=x_dtype, device=device,
-                                    expand_onehot=expand)
+                                    mesh=mesh, expand_onehot=expand)
             if hybrid_spec is not None:
                 from .hybrid_augment import HybridHostAugment
 
                 # holds the pretransformed subjects the per-batch stage reads
                 self._hybrid_rt = HybridHostAugment(training_dataset.subjects, hybrid_spec,
-                                                    x_dtype=x_dtype, device=device)
+                                                    x_dtype=x_dtype, device=device, mesh=mesh)
                 print(f"hybrid device cache: static channels cached, {hybrid_spec.n_channels} "
                       f"channel(s) ({', '.join(hybrid_spec.image_order)}) regenerated on host "
                       f"per batch")
@@ -771,7 +804,8 @@ class SegmentationTrainer:
                     "regenerated channel has no whole-volume slot to splice into; use "
                     "StandardDataLoader or device_cache=False")
             cache = DevicePatchCache(training_dataset.subjects, sampler=factory.sampler,
-                                     x_dtype=x_dtype, device=device, expand_onehot=expand)
+                                     x_dtype=x_dtype, device=device, mesh=mesh,
+                                     expand_onehot=expand)
             spv = factory.samples_per_volume
 
             def epoch():  # the queue's balance: spv patches per subject per epoch
@@ -808,10 +842,10 @@ class SegmentationTrainer:
 
             def subjects_thunk():
                 # host patches (a recorded Crop, an invertible history) at
-                # the device-drawn starts
+                # the device-drawn starts (on a mesh, every rank's)
                 from ..data.loader import extract_patch
 
-                starts_np = starts.cpu().numpy()
+                starts_np = all_gather_rows(starts, cache.mesh).cpu().numpy()
                 return [extract_patch(training_dataset.subjects[i], starts_np[k],
                                       cache.patch_size) for k, i in enumerate(idx)]
             return subjects_thunk, batch

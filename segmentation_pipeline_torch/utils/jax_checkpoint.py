@@ -17,6 +17,9 @@ it names onto the port:
   JAX objects carry and the port's do not (``_JAX_ONLY``) are dropped when
   they hold the one value the port implements, and raise naming the ROADMAP
   item that brings any other; the predictors get the port's ``device``.
+  A mesh recipe (the trainer's ``mesh`` or a PatchPredict's) becomes the
+  port's ``parallel.mesh.MeshRecipe``, rebuilt over the loading process's
+  process group when the converted checkpoint loads.
 - optax's state classes onto plain containers with the same fields; the
   model's flax variables go through ``models/convert.py``, Adam's
   ``mu``/``nu``/``count`` become ``torch.optim.Adam``'s ``exp_avg``/
@@ -57,7 +60,7 @@ JAX_ONLY_MODULES = ("jax", "jaxlib", "flax", "orbax", "chex")
 
 # modules that the port does not have yet, with their ROADMAP item
 NOT_PORTED_MODULES = {
-    "segmentation_pipeline_tpu.parallel": "item 10 (multi-device)",
+    "segmentation_pipeline_tpu.parallel.sharded_model": "item 10b (spatial sharding)",
 }
 
 # optax's state classes by name, with their fields
@@ -69,8 +72,7 @@ OPTAX_STATES = {"ScaleByAdamState": ("count", "mu", "nu"), "TraceState": ("trace
 # attributes of JAX objects that the port's objects lack, by class name:
 # the value the port implements, and the ROADMAP item that brings others
 _JAX_ONLY = {
-    "PatchPredict": {"mesh": (None, "item 10 (multi-device)"),
-                     "volume_sharded": (False, "item 10 (multi-device)")},
+    "PatchPredict": {"volume_sharded": (False, "item 10b (spatial sharding)")},
 }
 # run-time caches of the JAX objects, dropped whatever they hold
 _JAX_CACHES = {"StandardPredict": ("_confusion_plan",)}

@@ -97,9 +97,23 @@ def test_identity_member_only_is_the_bare_model(pair):
                                atol=TOL)
 
 
-def test_mesh_raises_naming_its_item(pair):
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        tens.EnsembleAffines(pair[1], mesh=object())
+def test_mesh_runs_the_folded_batch(pair):
+    """``mesh=`` folds the members into the batch; on a one-rank mesh (no
+    process group) that is the batched path, which matches JAX's at its
+    matrices (tests/test_torch_mesh.py holds 2 and 4 ranks to JAX's
+    meshes)."""
+    jmodel, model = pair
+    jtta, ttta = _pair(jmodel, model, 3, "mean", True)
+    meshed = tens.EnsembleAffines(model, num_members=3, mesh=tsp.make_mesh(device="cpu"))
+    meshed.matrices = ttta.matrices
+    assert meshed.batched
+    x = _x(5)
+    with torch.no_grad():
+        out = meshed(torch.from_numpy(x)).numpy()
+        torch.testing.assert_close(torch.from_numpy(out), ttta(torch.from_numpy(x)), rtol=0,
+                                   atol=0)
+    ref = np.asarray(jtta(x))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=TOL * np.abs(ref).max())
 
 
 def test_constant_model_survives_the_round_trip():

@@ -158,6 +158,54 @@ def test_hippo_inference_main_matches_jax(hippo, tmp_path, monkeypatch):
     assert settings[1]["out_folder"] == str(tmp_path / "port")
 
 
+def test_hippo_inference_tta_mesh_through_the_launcher(hippo, tmp_path):
+    """``--tta-mesh``: the port's hippo_inference over 2 gloo ranks started
+    by ``launch_multihost`` (each rank runs its rows of every folded flip
+    batch, rank 0 writes) against the port's one-process run and JAX's CLI
+    with the same flags: the port's two runs write the same NIfTIs voxel
+    for voxel, the same report and the same settings apart from the flag;
+    JAX's labels agree outside near-ties. JAX's own run is without
+    --tta-mesh, whose answer GSPMD keeps equal to it: its eager ops on
+    sharded arrays over 8 host devices can abort a loaded test worker, and
+    tests/test_torch_mesh.py holds the ensembles to JAX's 2- and 4-device
+    meshes."""
+    root, jfolder, tfolder = hippo
+    args = ["--cohort", COHORT, "--batch-size", "2", "--ensemble-flips", "--ensemble-folds",
+            "--batched-tta", "--device", "cpu"]
+    outs = {side: tmp_path / side for side in ("mesh", "one", "jax")}
+    for out in outs.values():
+        out.mkdir()
+    done = subprocess.run(
+        [sys.executable, "-m", "segmentation_pipeline_torch.research.scripts.launch_multihost",
+         "--num-processes", "2", "--timeout", "60", "--",
+         "segmentation_pipeline_torch.research.dmri_hippo.hippo_inference", str(tfolder),
+         str(root), "run", "--out-folder", str(outs["mesh"]), "--tta-mesh", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-4000:]
+    thippo_inference.main(tfolder, root, "run", out_folder=str(outs["one"]), cohort=COHORT,
+                          batch_size=2, ensemble_flips=True, ensemble_folds=True,
+                          batched_tta=True, device="cpu")
+    jhippo_inference.main(jfolder, root, "run", out_folder=str(outs["jax"]), cohort=COHORT,
+                          batch_size=2, ensemble_flips=True, ensemble_folds=True,
+                          batched_tta=True)
+    name = "dmri-hippo-dmri-hippo"
+    subjects = sorted(p.name for p in (outs["one"] / "subjects").iterdir())
+    assert len(subjects) == 3
+    for subject in subjects:
+        for suffix in ("_before_processing", ""):
+            (mesh, _), (one, _), (ref, _) = (
+                tsp.read_nifti(outs[side] / "subjects" / subject / f"{name}{suffix}.nii.gz")
+                for side in ("mesh", "one", "jax"))
+            np.testing.assert_array_equal(mesh, one)
+            assert mesh.shape == ref.shape and (mesh != ref).mean() < 0.01
+    assert (outs["mesh"] / f"{name}.txt").read_text() == (outs["one"] / f"{name}.txt").read_text()
+    settings = [json.loads((outs[side] / "run.json").read_text()) for side in outs]
+    drop = ("out_folder", "tta_mesh", "ensemble_path", "dataset_path")
+    assert settings[0]["tta_mesh"] and not settings[1]["tta_mesh"]
+    assert all({k: v for k, v in s.items() if k not in drop}
+               == {k: v for k, v in settings[1].items() if k not in drop} for s in settings)
+
+
 def test_run_inference_matches_jax_at_8_orientations(hippo, tmp_path, monkeypatch):
     """run_inference's main (one fold, 8 orientations through
     test_time_augmentation, holes removed, written on the original grid):

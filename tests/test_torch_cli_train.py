@@ -3,10 +3,11 @@ run.py, research/msseg2/run.py and the ablation config
 configs/augmentation.py) against the JAX package's on the CPU: the parsers
 take the JAX CLIs' arguments and defaults (and ``--device``), ``main``
 trains two iterations at a small size (dmri_hippo on the default and the
-fast path) and writes checkpoints that the port's serving CLIs load,
-every flag whose feature waits for a ROADMAP item raises naming it before
-any work is done, and the flags whose items were ported since
-(--device-postprocess, cascade_experiment) run."""
+fast path) and writes checkpoints that the port's serving CLIs load, and
+the flags whose items were ported since (--device-postprocess,
+cascade_experiment) run. ``hippo_inference --tta-mesh`` raised here until
+item 10a was ported: tests/test_torch_cli_inference.py now runs it over 2
+ranks."""
 import argparse
 import functools
 import json
@@ -152,15 +153,6 @@ def test_augmentation_modes_match_jax(hippo_root):
 
 def _run_args(command, *extra):
     return trun.build_parser().parse_args([command, MISSING, "/nonexistent/logs", *extra])
-
-
-@pytest.mark.parametrize("call, item", [
-    (lambda: hippo_inference.main(MISSING, MISSING, "r", tta_mesh=True), "item 10"),
-], ids=["tta-mesh"])
-def test_unported_flags_raise_naming_their_item(call, item):
-    """Each raises before it reads anything: the paths do not exist."""
-    with pytest.raises(NotImplementedError, match=item):
-        call()
 
 
 @pytest.fixture(scope="module")

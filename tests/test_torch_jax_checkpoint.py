@@ -227,7 +227,8 @@ def _trainer(checkpoint):
 
 def test_unported_contents_raise_naming_their_item(checkpoints):
     """orbax array storage stays out by design (it needs JAX): the message
-    says how to re-save; a PatchPredict mesh waits for item 10."""
+    says how to re-save; a W-sharded PatchPredict (volume_sharded) waits
+    for item 10b."""
     _, ckpt, _ = checkpoints["dmri_hippo"]
     _, ms_ckpt, _ = checkpoints["msseg2"]
 
@@ -237,14 +238,42 @@ def test_unported_contents_raise_naming_their_item(checkpoints):
     with pytest.raises(NotImplementedError, match='array_storage="pickle"'):
         convert_checkpoint_data(_jax_payload(ckpt, orbax))
 
-    def mesh(c):
-        import jax
+    def sharded(c):
+        _trainer(c)["params"]["validation_predictor"].volume_sharded = True
 
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        convert_checkpoint_data(_jax_payload(ms_ckpt, sharded))
+
+
+def test_meshes_convert(checkpoints, tmp_path):
+    """A JAX checkpoint whose trainer and PatchPredict hold meshes (pickled
+    as JAX stores them, as recipes) converts: the port's context rebuilds
+    the trainer's mesh over this process at load, the predictor keeps its
+    recipe until its first predict, and that predict over the one-rank mesh
+    gives the predictor's answer without a mesh, which is JAX's."""
+    import jax
+
+    root, ms_ckpt, _ = checkpoints["msseg2"]
+
+    def mesh(c):
         _trainer(c)["params"]["validation_predictor"].mesh = jax.sharding.Mesh(
             np.array(jax.devices()[:1]), ("data",))
+        _trainer(c)["params"]["mesh"] = jsp.MeshRecipe(("data", "model"), (1, 1))
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        convert_checkpoint_data(_jax_payload(ms_ckpt, mesh))
+    converted = tmp_path / "mesh.ckpt"
+    tsp.Context.write_snapshot(convert_checkpoint_data(_jax_payload(ms_ckpt, mesh)), converted)
+    context = loaded(tsp, converted, root)
+    assert context.trainer.mesh.shape == {"data": 1, "model": 1}
+    predictor = context.trainer.validation_predictor
+    assert isinstance(predictor.mesh, tsp.MeshRecipe) and predictor.mesh.shape == (1,)
+    subject = context.dataset.get_cohort_dataset(COHORTS["msseg2"])[0]
+    outs = []
+    for mesh_of in (lambda: predictor.mesh, lambda: None):
+        predictor.mesh = mesh_of()
+        _, batch = predictor.predict(context.model, [subject])
+        outs.append(batch["y_pred"])
+    assert predictor.mesh is None and outs[0].shape == outs[1].shape
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=1e-6)
 
 
 def test_process_workers_convert(checkpoints, tmp_path):

@@ -242,8 +242,9 @@ def test_lazy_batch_collates_on_first_access():
 
 def test_device_postprocess_and_multi_device_wait_for_their_slices(pair):
     """device_postprocess (ported with the device morphology) needs
-    device_argmax and cleans the ids as JAX's fused predictor does; the
-    multi-device options still wait for their slice."""
+    device_argmax and cleans the ids as JAX's fused predictor does; a
+    W-sharded volume (volume_sharded) still waits for its slice (mesh=
+    runs since item 10a: tests/test_torch_mesh.py)."""
     jmodel, model = pair
     subjects = _subjects(tsp, [(8, 8, 8)])
     with pytest.raises(ValueError, match="requires device_argmax"):

@@ -465,7 +465,9 @@ def hybrid_training_pipeline():
 @pytest.mark.parametrize("case", ["device_cache", "device_augmentation", "mesh", "spatial_axis",
                                   "refine_image", "device_confusion_sweep"])
 def test_what_is_not_ported_raises(e2e, tmp_path, case):
-    """mesh and spatial_axis raise naming their ROADMAP item. Of the device
+    """spatial_axis raises naming its ROADMAP item (10b); mesh raised until
+    item 10a was ported: now a one-rank mesh (no process group) trains
+    (tests/test_torch_mesh_ranks.py trains 2 ranks). Of the device
     levers, a hybrid split (a host channel resynthesis) raised with the
     device cache until training/hybrid_augment.py was ported: now it trains
     with the cache, whichever lever is set first, through the per-batch host
@@ -480,7 +482,7 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
     levers = {"device_cache": True, "device_augmentation": "auto"}
     kwargs = {"device_cache": dict(levers),
               "device_augmentation": dict(reversed(levers.items())),
-              "mesh": {"mesh": object()},
+              "mesh": {"mesh": tsp.make_mesh(device="cpu")},
               "spatial_axis": {"spatial_axis": "w"},
               "refine_image": {
                   "train_predictor": tsp.StandardPredict(image_names=["X", "y"],
@@ -489,7 +491,7 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
                                                               device="cpu")},
               "device_confusion_sweep": {"validation_predictor": tsp.StandardPredict(
                   image_names=["X"], device_argmax=True, device="cpu")}}[case]
-    item = {"mesh": "item 10", "spatial_axis": "item 10"}.get(case)
+    item = {"spatial_axis": "item 10b"}.get(case)
 
     def context_of(**trainer_kwargs):
         context = build_context(tsp, root, **trainer_kwargs)
@@ -519,6 +521,10 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
         context.init_components()
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
         assert context.trainer.iteration == 1
+    if case == "mesh":
+        assert context.trainer.mesh.shape == {"data": 1}
+        recipe = context.snapshot()["component_definitions"][-1]["params"]["mesh"]
+        assert isinstance(recipe, tsp.MeshRecipe) and recipe.shape == (1,)
     if case == "refine_image":
         context = context_of(device_cache=True, **kwargs)
         context.init_components()
