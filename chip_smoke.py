@@ -33,7 +33,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    them, cuDNN's gradients (torch.nn.grad.conv3d_input / conv3d_weight) and
    the bound (float32: both). Then, untimed in both types, the forward, dX
    and dW at every class at N=16 (phase 16's step at world 1 and its TTA
-   forward on each rank).
+   forward on each rank). Then `kernels spatial`: the W-extended classes
+   of phase 16's spatial step (each level's slab at 2 ranks, 48/24/12/6
+   rows, widened by 2 halo rows): the forward at N=1 and N=4 and dX and dW
+   at N=4, in both types, against the plain versions (integers bit for
+   bit), the forward at N=4 timed (rows of the JSON, launches a step from
+   phase 16's rank 0).
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
@@ -197,7 +202,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    two subjects (25 launches per orientation at N=1), and its first 4
    orientations of one subject against the port on the CPU from the same
    checkpoint; msseg2/run.py --tpu-fast-path for 6 iterations (67/32/34
-   asserted), ms_inference on its checkpoint with and without
+   asserted; its trainer takes the training set that phase 12's msseg2
+   trainer pretransformed, the same folder, subjects and pipeline, where
+   phase 12 ran before: PretransformMemo), ms_inference on its checkpoint with and without
    --device-argmax (34 launches per patch; identical masks), ms_run in a
    subprocess on one raw FLAIR pair (its mask equals ms_inference's on the
    staged folder).
@@ -257,7 +264,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    each sweep's ms by state beside a host-path run's, the bytes fetched per
    subject; overlap_histogram_device against the host instance chain on
    lesion masks of that grid, with a capacity it overflows.
-16. mesh: the data-parallel mesh (segmentation_pipeline_torch/parallel).
+16. mesh: the data-parallel mesh and spatial sharding
+   (segmentation_pipeline_torch/parallel).
    NCCL refuses two ranks on one card, so the mesh runs at world size 2 as
    two processes on the card that the port's launcher starts
    (launch_multihost.launch_local; each runs this script with --mesh-rank),
@@ -278,9 +286,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the labels on the scanner grid equal voxel for voxel; (c) the msseg2
    competition predictor with mesh= on one raw 256x256x144 subject in
    model space (the 27 patches padded to 28, 14 a rank, 34 launches each):
-   probabilities within 1e-5, masks equal. Each path's time beside the one
-   process's, each part's seconds and the ranks' timeline; the ranks are
-   joined before the phase ends.
+   probabilities within 1e-5, masks equal. Then the spatial parts, with
+   W sharded over a 'spatial' mesh axis of the same ranks (2 slabs of 48
+   rows; the whole W at world 1): (d) spatial_sharded_inference of one
+   3x96x88x24 volume (probabilities within 1e-5, labels equal, 25 launches
+   on each rank); (e) make_spatial_train_step on 4 whole volumes
+   (dropout 0.2, SGD(lr=1e-2)), 3 steps in f32 and bf16, against
+   make_train_step in one process: losses as in (a); in f32 each step
+   starts from the one process's weights before it, and its gradient and
+   update are held within 1e-4 or the farthest of the same four nudges of
+   the one process (from those weights); 25/23/25 launches a step asserted
+   by shape, every rank's
+   weights bit for bit, each rank's peak memory below 0.75 of the one
+   process's, the halo exchanges' calls and bytes a step; (f) the msseg2
+   competition predictor with volume_sharded=True and shape_bucket=96
+   (150x182x147 padded to 192^3: the 27 patches, 18 and 9 on the ranks by
+   their start rows, 34 launches each): probabilities within 1e-5, masks
+   equal. Each path's time beside the one process's, each part's seconds
+   and the ranks' timeline; the ranks are joined before the phase ends.
 
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -325,7 +348,7 @@ from segmentation_pipeline_torch import (SGD, Adam, EnsembleAffines, EnsembleFli
                                          HybridLogisticDiceLoss, LabelMap,
                                          PatchDataLoader, PatchPredict, ScalarImage, Subject,
                                          WeightedSampler, collate_to_device, create_train_state,
-                                         make_train_step, seed_all)
+                                         make_spatial_train_step, make_train_step, seed_all)
 from segmentation_pipeline_torch.core.nifti import read_nifti, write_nifti
 from segmentation_pipeline_torch.models import (BatchNorm, BlurConv3d, BlurConvTranspose3d,
                                                 Conv3d, ModularUNet, NestedResUNet,
@@ -338,8 +361,11 @@ from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_
                                                      reset_launch_counts)
 from segmentation_pipeline_torch.core.subject import collate_subjects
 from segmentation_pipeline_torch.data.loader import extract_patch
+from segmentation_pipeline_torch.data.subject_folder import SubjectFolder
 from segmentation_pipeline_torch.ops.sliding_window import grid_locations
+from segmentation_pipeline_torch.parallel import halo
 from segmentation_pipeline_torch.parallel.mesh import any_rank
+from segmentation_pipeline_torch.parallel.sharded_model import spatial_sharded_inference
 from segmentation_pipeline_torch.prediction import (StandardPredict, apply_stochastic_matrix,
                                                     reverse_split_and_flip, split_and_flip)
 from segmentation_pipeline_torch.research.dmri_hippo.configs import cascade as cascade_config
@@ -2747,6 +2773,43 @@ def patch_cache_check(card, context, seed):
           flush=True)
 
 
+class PretransformMemo:
+    """msseg2's training set as the fast-path phase's trainer pretransformed
+    it, for the cli phase's ``msseg2/run.py --tpu-fast-path`` over the same
+    dataset: the same folder, subjects and pipeline (its repr) give the same
+    subjects, so the CLI's trainer skips a second pass of about 20 s through
+    the pipeline. Inside ``sharing()`` a pretransform whose folder, subjects
+    and pipeline match a kept one takes a copy of it (counted in
+    ``reused``); any other runs, and its result is kept."""
+
+    def __init__(self):
+        self.kept, self.reused = {}, 0
+
+    @contextlib.contextmanager
+    def sharing(self):
+        original = SubjectFolder.preload_and_transform_subjects
+
+        def share(dataset):
+            if dataset._pretransformed:
+                return original(dataset)
+            key = (os.path.abspath(dataset.root), repr(dataset.transform),
+                   tuple(s["name"] for s in dataset.all_subjects))
+            if key in self.kept:
+                dataset._preloaded = dataset._pretransformed = True
+                dataset.set_all_subjects(copy.deepcopy(self.kept[key]))
+                self.reused += 1
+                return
+            original(dataset)
+            if dataset._pretransformed:
+                self.kept[key] = copy.deepcopy(dataset.all_subjects)
+
+        with patched(SubjectFolder, "preload_and_transform_subjects", share):
+            yield
+
+
+PRETRANSFORMED = PretransformMemo()
+
+
 def fast_path_phase(card, seed, root, ms_root, tmp, drop_contours):
     """tpu_fast_path=True on the card: the augmentation checks, dmri_hippo's
     trainer in f32 and bf16 (each profiled in steady state) over phase 11's
@@ -2762,8 +2825,9 @@ def fast_path_phase(card, seed, root, ms_root, tmp, drop_contours):
         profile_trainer(card, context, f"fast-path dmri_hippo {name}")
         del context
         torch.cuda.empty_cache()
-    context = ms_trainer_run(card, ms_root, os.path.join(tmp, "logs-fast-msseg2"),
-                             drop_contours, fast_path=True, iterations=MS_FAST_ITERATIONS)
+    with PRETRANSFORMED.sharing():
+        context = ms_trainer_run(card, ms_root, os.path.join(tmp, "logs-fast-msseg2"),
+                                 drop_contours, fast_path=True, iterations=MS_FAST_ITERATIONS)
     patch_cache_check(card, context, seed)
 
 
@@ -3038,9 +3102,14 @@ def cli_msseg2(card, ms_root, tmp):
     ms_run on one raw FLAIR pair (its mask equals ms_inference's on the
     staged folder)."""
     logs = os.path.join(tmp, "cli-msseg2")
-    _, wall, _, counts = cli_run({}, lambda: cli_ms_run.main(
-        [ms_root, logs, "--max-iterations", str(CLI_ITERATIONS), "--num-workers",
-         str(TRAINER_WORKERS), "--tpu-fast-path"]))
+    reused = PRETRANSFORMED.reused
+    with PRETRANSFORMED.sharing():
+        _, wall, _, counts = cli_run({}, lambda: cli_ms_run.main(
+            [ms_root, logs, "--max-iterations", str(CLI_ITERATIONS), "--num-workers",
+             str(TRAINER_WORKERS), "--tpu-fast-path"]))
+    # the training set as the fast-path phase pretransformed it, where that
+    # phase ran before
+    reused = PRETRANSFORMED.reused > reused
     step = ms_expected_train_launches(torch.float32, CLI_ITERATIONS)
     assert counts["dx"] == step["dx"] and counts["dw"] == step["dw"], counts
     validation = counts["fwd"] - step["fwd"]
@@ -3052,7 +3121,9 @@ def cli_msseg2(card, ms_root, tmp):
     assert [r["iteration"] for r in records] == list(range(CLI_ITERATIONS))
     _, text = split_text(plain_iterations(records, 0), CLI_ITERATIONS, wall)
     checkpoint = os.path.join(run_dir, "checkpoints", f"msseg2-iter{CLI_ITERATIONS:08}.ckpt")
-    print(f"cli msseg2/run.py --tpu-fast-path: {text.replace('train() call', 'CLI call')}; "
+    source = "the fast-path phase's" if reused else "its own"
+    print(f"cli msseg2/run.py --tpu-fast-path (on {source} pretransformed training set): "
+          f"{text.replace('train() call', 'CLI call')}; "
           f"launches per iteration forward {MS_FWD_PER_STEP}, dX {MS_DX_PER_STEP}, dW "
           f"{MS_CONVS_PER_FORWARD} [{card}]", flush=True)
 
@@ -4147,6 +4218,279 @@ def nudged_steps(inputs, what, factor):
     return mesh_steps(None, inputs, torch.float32, inputs["batch"], weights)
 
 
+# ---- the spatial parts of phase 16 (parallel/halo.py, sharded_model.py,
+# make_spatial_train_step): the W axis of whole dmri_hippo volumes sharded
+# over the ranks of a 'spatial' mesh axis.
+SPATIAL_BATCH = SUBJECTS_PER_REQUEST  # whole volumes a spatial step, on every rank
+# (e) steps with SGD, as the JAX package's own spatial-step test does: its
+# update is the gradient times lr, so a gap of one rounding in the
+# gradient stays one in the weights. Adam's first steps move each weight by
+# about lr x sign(gradient) and turn the rounding of every near-zero
+# gradient into a whole step (PERF.md §6, spatial sharding).
+SPATIAL_LR = 1e-2
+SPATIAL_MEMORY_SHARE = 0.75
+# (f) pads the msseg2 subject to a multiple of this on every axis: 150 ->
+# 192 in W, two slabs of a patch each
+SHARDED_BUCKET = MS_PATCH
+
+
+def spatial_classes(ranks=None):
+    """The conv classes of NestedResUNet-40's forward on whole 96x88x24
+    volumes: with ``ranks``, W-sharded over them (each conv runs on its
+    level's slab widened by two halo rows), else unsharded."""
+    out = []
+    for (w, h, d), cin, cout, n in CONV_CLASSES:  # half-volumes there
+        out.append(((2 * w if ranks is None else 2 * w // ranks + 2, h, d), cin, cout, n))
+    return out
+
+
+SPATIAL_CONV_CLASSES = spatial_classes(MESH_WORLD)
+
+
+def spatial_expected_launches(dtype, steps, n, ranks):
+    """Forward, dX and dW launches by shape over ``steps`` spatial steps
+    (``ranks`` None: the unsharded step) at ``n`` volumes."""
+    classes = spatial_classes(ranks)
+    fwd = Counter({(str(dtype), n, *spatial, cin, cout): m * steps
+                   for spatial, cin, cout, m in classes})
+    dx = Counter({(str(dtype), n, *spatial, cout, cin): m * steps
+                  for spatial, cin, cout, m in classes if cin != IN_CHANNELS})
+    return {"fwd": fwd, "dx": dx, "dw": fwd}
+
+
+def spatial_kernel_phase(device, seed, card):
+    """The kernels at every class of the spatial parts, in both types
+    against the plain versions, untimed: the forward at N=1
+    (spatial_sharded_inference) and the forward, dX and dW at the spatial
+    step's N, at the W-sharded classes (each level's slab at 2 ranks
+    widened by its 2 halo rows), at NCCL world 1's (the whole W widened by
+    its 2 zero rows) and at the one process's (the whole W). Then the
+    forward at the 2-rank classes and the step's N timed (the rows of the
+    JSON, launches from phase 16)."""
+    for ranks in (None, 1):
+        check_classes(device, seed, card, SPATIAL_BATCH, spatial_classes(ranks))
+    for classes in (spatial_classes(None), spatial_classes(1), SPATIAL_CONV_CLASSES):
+        check_classes(device, seed, card, 1, classes)
+        grad_kernel_phase(device, SPATIAL_BATCH, seed, card, classes, timing=None)
+    return kernel_phase(device, SPATIAL_BATCH, seed + 1, card, SPATIAL_CONV_CLASSES)
+
+
+def spatial_forward(mesh, inputs):
+    """(d) one volume through spatial_sharded_inference (``mesh`` None: the
+    unsharded eval forward): this process's slab of the f32 probabilities
+    and its forward launches."""
+    model = SegModel(NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS), device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["state"].items()})
+    volume = inputs["batch"]["X"][0]
+    reset_launch_counts()
+    if mesh is None:
+        module = model.module.eval()
+        with torch.inference_mode():
+            x = torch.from_numpy(volume).cuda().permute(1, 2, 3, 0)[None].contiguous()
+            out = module(x)[0].permute(3, 0, 1, 2)
+    else:
+        out = spatial_sharded_inference(model, volume[:, mesh.w_slab(CROP[0], "spatial")],
+                                        mesh, "spatial")
+    probabilities = out.float().cpu().numpy()
+    return probabilities, conv3x3_s1p1.launches
+
+
+def spatial_steps(mesh, inputs, dtype, batch_cf, weights=None, follow=None):
+    """(e) MESH_STEPS SGD steps on SPATIAL_BATCH whole volumes:
+    make_spatial_train_step on ``mesh`` (this rank's W slabs), or the
+    one-device make_train_step (``mesh`` None), from ``weights`` (default:
+    the inputs') and the inputs' dropout seed, with the launches a step
+    asserted by shape. With ``follow`` (flat parameter vectors, one a
+    step) each step starts from its vector: the one process's weights
+    before that step, so that every step is held to the one process's
+    from the same weights. As ``mesh_steps`` returns, the update being
+    each step's (its weights less its start), with this process's peak
+    memory over the steps and its halo traffic a step."""
+    model = SegModel(NestedResUNet(IN_CHANNELS, OUT_CHANNELS, filters=FILTERS,
+                                   dropout_p=0.2), device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in (weights or inputs["state"]).items()})
+    optimizer = SGD(lr=SPATIAL_LR)
+    state = create_train_state(model, optimizer, batch_cf)
+    compute = None if dtype == torch.float32 else "bfloat16"
+    if mesh is None:
+        step = make_train_step(model.module, HybridLogisticDiceLoss(), optimizer,
+                               compute_dtype=compute)
+        batch = collate_to_device(batch_cf, device="cuda")
+    else:
+        step = make_spatial_train_step(model.module, HybridLogisticDiceLoss(), optimizer, mesh,
+                                       "spatial", compute_dtype=compute)
+        batch = collate_to_device(batch_cf, mesh=mesh, data_axis=None, spatial_axis="spatial")
+    generator = torch.Generator(device="cuda").manual_seed(inputs["seed"])
+    params = list(model.module.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    halo.TRAFFIC.clear()
+    times, losses, grads, weights, starts = [], [], [], [], []
+    for k in range(MESH_STEPS):
+        if follow is not None:
+            with torch.no_grad():
+                offset = 0
+                for p in params:
+                    p.copy_(torch.from_numpy(follow[k][offset:offset + p.numel()]).view_as(p))
+                    offset += p.numel()
+        with uncounted():
+            starts.append(torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss_dict, y_pred = step(state, batch, generator)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss_dict["loss"].item())
+        with uncounted():
+            grads.append(torch.cat([p.grad.reshape(-1) for p in params]).cpu().numpy())
+            weights.append(torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy())
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    ranks = None if mesh is None else mesh.shape["spatial"]
+    assert counts == spatial_expected_launches(dtype, MESH_STEPS, SPATIAL_BATCH, ranks), counts
+    w = CROP[0] // (ranks or 1)
+    assert tuple(y_pred.shape) == (SPATIAL_BATCH, w, *CROP[1:], OUT_CHANNELS)
+    return dict(losses=losses, ms=times, grads=grads, weights=weights, peak=peak,
+                starts=starts, updates=[w - a for w, a in zip(weights, starts)], by_shape=counts,
+                traffic={k: v // MESH_STEPS for k, v in halo.TRAFFIC.items()},
+                launches=[counts[kind].total() // MESH_STEPS for kind in ("fwd", "dx", "dw")])
+
+
+def spatial_batch(inputs):
+    return {k: v[:SPATIAL_BATCH] for k, v in inputs["batch"].items()}
+
+
+def nudged_spatial_steps(inputs, what, factor):
+    """The one process's f32 reference of (e), each step from the one
+    process's weights before it (free-running where the inputs hold none),
+    with every value of the batch's X or of those weights times
+    ``factor``."""
+    batch, follow = spatial_batch(inputs), inputs.get("follow")
+    if what == "X":
+        return spatial_steps(None, inputs, torch.float32,
+                             dict(batch, X=batch["X"] * np.float32(factor)), follow=follow)
+    if follow is None:
+        weights = {k: v * v.dtype.type(factor) if v.dtype.kind == "f" else v
+                   for k, v in inputs["state"].items()}
+        return spatial_steps(None, inputs, torch.float32, batch, weights)
+    return spatial_steps(None, inputs, torch.float32, batch,
+                         follow=[w * np.float32(factor) for w in follow])
+
+
+def sharded_request_patches(shape, mesh):
+    """The 96^3 patches of the (f) request that this process runs: those
+    whose start row its W slab holds (all of them without a mesh)."""
+    padded = [-(-s // SHARDED_BUCKET) * SHARDED_BUCKET for s in shape]
+    locations = grid_locations(padded, (MS_PATCH,) * 3, (MS_PATCH // 2,) * 3)
+    if mesh is None:
+        return len(locations)
+    ranks, me = mesh.shape[mesh.data_axis], mesh.coords[mesh.data_axis]
+    w = padded[0] // ranks
+    return sum(min(int(loc[0]) // w, ranks - 1) == me for loc in locations)
+
+
+def spatial_paths(mesh, inputs):
+    """The spatial parts on ``mesh`` (a 'spatial' mesh over the process
+    group; None: this process without a mesh): (d), (e) in f32 and bf16,
+    and (f) the msseg2 competition predictor with volume_sharded=True (its
+    volume padded to whole patches by shape_bucket, so that W divides over
+    the ranks in slabs of at least a patch), over the 'data' mesh of the
+    same ranks. Returns the results and each part's seconds."""
+    marks = [time.perf_counter()]
+    probabilities, launches = spatial_forward(mesh, inputs)
+    result = {"spatial_probabilities": probabilities, "spatial_launches": launches}
+    marks.append(time.perf_counter())
+    for dtype in DTYPES:
+        # f32: each step from the one process's weights before it, where
+        # they are known (every run but the one process's own)
+        follow = inputs.get("follow") if dtype == torch.float32 else None
+        result[f"spatial {DTYPE_NAMES[dtype]}"] = spatial_steps(
+            mesh, inputs, dtype, spatial_batch(inputs), follow=follow)
+    marks.append(time.perf_counter())
+    data_mesh = None if mesh is None else tsp.make_mesh(mesh.size)
+    model = msseg2_model(inputs["seed"], "cuda")
+    predictor = competition_predictor()
+    predictor.shape_bucket = SHARDED_BUCKET
+    predictor.mesh, predictor.volume_sharded = data_mesh, data_mesh is not None
+    subject = Subject({"X": ScalarImage(tensor=inputs["ms_x"], affine=inputs["ms_affine"])})
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    [served], _ = predictor.predict(model, [subject])
+    torch.cuda.synchronize()
+    result["sharded_ms_ms"] = (time.perf_counter() - t0) * 1e3
+    patches = sharded_request_patches(inputs["ms_x"].shape[1:], data_mesh)
+    assert conv3x3_s1p1.launches == patches * MS_CONVS_PER_FORWARD, conv3x3_s1p1.launches
+    result["sharded_ms_patches"] = patches
+    result["sharded_ms_probabilities"] = np.asarray(served["y_pred"].data)
+    marks.append(time.perf_counter())
+    result["spatial_parts_s"] = [b - a for a, b in zip(marks, marks[1:])]
+    return result
+
+
+def spatial_checks(card, label, runs, one, floor):
+    """Each rank's spatial parts against the one process: (d) its slab of
+    the probabilities and labels; (e) the losses, the launches a step, the
+    f32 gradient and update (beside ``floor``, the farthest nudge of the
+    one process), the ranks' weights and the peak memory; (f) the
+    probabilities and the mask. Printed, then asserted."""
+    ranks = len(runs) if label.startswith("gloo") else 1
+    w = CROP[0] // ranks
+    d_gap = max(float(np.abs(run["spatial_probabilities"]
+                             - one["spatial_probabilities"][:, r * w:(r + 1) * w]).max())
+                for r, run in enumerate(runs))
+    d_labels = sum(int((run["spatial_probabilities"].argmax(0) != one["spatial_probabilities"][
+        :, r * w:(r + 1) * w].argmax(0)).sum()) for r, run in enumerate(runs))
+    loss_gaps = {}
+    for dtype in DTYPES:
+        key = f"spatial {DTYPE_NAMES[dtype]}"
+        want = np.array(one[key]["losses"])
+        loss_gaps[dtype] = max(float(np.max(np.abs(np.array(run[key]["losses"]) - want) / want))
+                               for run in runs)
+    f32 = [run["spatial f32"] for run in runs]
+    gaps = {key: flat_gaps(f32, one["spatial f32"], key) for key in ("grads", "updates")}
+    ranks_equal = all(np.array_equal(run["weights"][-1], f32[0]["weights"][-1]) for run in f32)
+    peaks = [run["peak"] for run in f32]
+    share = max(peaks) / one["spatial f32"]["peak"]
+    f_gap = max(float(np.abs(run["sharded_ms_probabilities"]
+                             - one["sharded_ms_probabilities"]).max()) for run in runs)
+    mask_ref = np.argmax(one["sharded_ms_probabilities"], 0)
+    f_mask = max(int((np.argmax(run["sharded_ms_probabilities"], 0) != mask_ref).sum())
+                 for run in runs)
+    print(f"mesh {label} spatial: (d) spatial_sharded_inference max |sharded - one| "
+          f"{d_gap:.3e}, label voxels that differ {d_labels}, forward launches "
+          f"{[run['spatial_launches'] for run in runs]}; (e) f32 losses "
+          + ", ".join(f"{v:.7f}" for v in f32[0]["losses"]) + " against one process "
+          + ", ".join(f"{v:.7f}" for v in one["spatial f32"]["losses"])
+          + f"; largest relative loss gap f32 {loss_gaps[torch.float32]:.3e}, bf16 "
+          f"{loss_gaps[torch.bfloat16]:.3e}; f32 |sharded - one| / |one| of steps 1/2/3, each "
+          f"from the one process's weights: "
+          f"gradient {gap_text(gaps['grads'])} (farthest nudge {gap_text(floor['grads'])}), "
+          f"update {gap_text(gaps['updates'])} (farthest nudge {gap_text(floor['updates'])}); "
+          f"the ranks' weights equal: {ranks_equal}; f32 step max_memory_allocated "
+          + ", ".join(f"rank {r} {p}" for r, p in enumerate(peaks))
+          + f" bytes against one process {one['spatial f32']['peak']} (largest share "
+          f"{share:.4f}); (f) PatchPredict(volume_sharded=True) probabilities max "
+          f"|sharded - one| {f_gap:.3e}, mask voxels that differ {f_mask} of {mask_ref.size}, "
+          f"patches a rank {[run['sharded_ms_patches'] for run in runs]} [{card}]", flush=True)
+    assert d_gap <= MESH_PROB_TOL and d_labels == 0, (label, d_gap, d_labels)
+    assert all(run["spatial_launches"] == CONVS_PER_FORWARD for run in runs), label
+    for dtype in DTYPES:
+        assert loss_gaps[dtype] <= MESH_LOSS_RTOL[dtype], (label, dtype, loss_gaps[dtype])
+        key = f"spatial {DTYPE_NAMES[dtype]}"
+        assert all(run[key]["launches"] == [CONVS_PER_FORWARD, DX_PER_STEP, CONVS_PER_FORWARD]
+                   for run in runs), label
+    for key in ("grads", "updates"):
+        assert all(gap <= max(MESH_PARAM_TOL, low) for gap, low in zip(gaps[key], floor[key])), \
+            (label, key, gaps[key], floor[key])
+    assert ranks_equal, label
+    if ranks > 1:
+        assert share < SPATIAL_MEMORY_SHARE, (label, peaks, one["spatial f32"]["peak"])
+    assert f_gap <= MESH_PROB_TOL and f_mask == 0, (label, f_gap, f_mask)
+
+
 def mesh_paths(mesh, inputs, out):
     """The three paths on ``mesh`` (None: one process, no mesh), with this
     process's kernel launches asserted on each: (a) dmri_hippo's train step
@@ -4193,6 +4537,8 @@ def mesh_paths(mesh, inputs, out):
     result["probabilities"] = np.asarray(served["y_pred"].data)
     marks.append(time.perf_counter())
     result["parts_s"] = [b - a for a, b in zip(marks, marks[1:])]
+    result.update(spatial_paths(None if mesh is None else tsp.make_mesh(
+        mesh.size, ("spatial",)), inputs))
     return result
 
 
@@ -4211,7 +4557,7 @@ def mesh_rank(folder):
         with open(os.path.join(folder, "inputs.pkl"), "rb") as f:
             inputs = pickle.load(f)
         stamps.append(time.time())
-        result = mesh_paths(mesh, inputs, os.path.join(folder, "hippo"))
+        result = world_paths(mesh, inputs, folder)
         stamps.append(time.time())
         result.update(stamps=stamps, threads=torch.get_num_threads())
         with open(os.path.join(folder, f"rank{rank}.pkl"), "wb") as f:
@@ -4257,9 +4603,59 @@ def nccl_world(inputs, folder):
         MESH_NCCL_BACKEND, init_method=f"file://{os.path.join(folder, 'rendezvous')}",
         world_size=1, rank=0, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
-        return mesh_paths(tsp.make_mesh(), inputs, os.path.join(folder, "hippo"))
+        return world_paths(tsp.make_mesh(), inputs, folder)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def world_paths(mesh, inputs, folder):
+    """What a world runs on ``mesh``: the mesh phase's paths, or with
+    ``--spatial-drift`` (the inputs' ``drift``) only (e)'s f32 steps,
+    free-running, on each seed's inputs."""
+    if "drift" not in inputs:
+        return mesh_paths(mesh, inputs, os.path.join(folder, "hippo"))
+    spatial = tsp.make_mesh(mesh.size, ("spatial",))
+    return {"drift": [spatial_steps(spatial, item, torch.float32, spatial_batch(item))
+                      for item in inputs["drift"]]}
+
+
+def spatial_drift(card, seeds, tmp):
+    """``--spatial-drift``: (e)'s f32 steps at each of ``seeds`` (seed 0:
+    the mesh phase's inputs), free-running: each step from the weights
+    that the last one left, where the mesh phase starts every step from
+    the one process's weights. After each step, the gap of the gloo ranks
+    and of NCCL world 1 to the one process, beside the farthest of the
+    four nudges of the one process (free-running too), read as
+    spatial_checks reads them. Printed, not asserted."""
+    build.build(conv3x3.SOURCES)
+    items = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed + 40)  # mesh_inputs' first draws
+        state = {k: v.numpy() for k, v in flax_to_state_dict(flax_weights(rng)).items()}
+        items.append(dict(seed=seed, state=state, batch=train_batch(rng, MESH_BATCH)))
+    ones, floors = [], []
+    for item in items:
+        ones.append(spatial_steps(None, item, torch.float32, spatial_batch(item)))
+        nudged = [nudged_spatial_steps(item, *nudge) for nudge in MESH_NUDGES]
+        floors.append({key: [max(flat_gaps([run], ones[-1], key)[k] for run in nudged)
+                             for k in range(MESH_STEPS)] for key in ("grads", "updates")})
+    gloo = gloo_world({"drift": items}, os.path.join(tmp, "drift-gloo"))
+    os.makedirs(os.path.join(tmp, "drift-nccl"))
+    nccl = nccl_world({"drift": items}, os.path.join(tmp, "drift-nccl"))
+    for k, seed in enumerate(seeds):
+        for label, runs in ((f"gloo world {MESH_WORLD}", [run["drift"][k] for run in gloo]),
+                            ("nccl world 1", [nccl["drift"][k]])):
+            gaps = {key: flat_gaps(runs, ones[k], key) for key in ("grads", "updates")}
+            ratios = {key: "/".join(f"{g / f:.3f}" for g, f in zip(gaps[key], floors[k][key]))
+                      for key in gaps}
+            print(f"spatial drift seed {seed} {label}: f32 |sharded - one| / |one| after "
+                  f"free-running steps 1/2/3: gradient {gap_text(gaps['grads'])} (farthest "
+                  f"nudge {gap_text(floors[k]['grads'])}, ratio {ratios['grads']}), update "
+                  f"{gap_text(gaps['updates'])} (farthest nudge "
+                  f"{gap_text(floors[k]['updates'])}, ratio {ratios['updates']}); losses "
+                  + ", ".join(f"{v:.7f}" for v in runs[0]["losses"]) + " against "
+                  + ", ".join(f"{v:.7f}" for v in ones[k]["losses"]) + f" [{card}]",
+                  flush=True)
 
 
 def flat_gaps(runs, ref, key):
@@ -4316,13 +4712,17 @@ def mesh_checks(card, label, runs, one, floor):
     assert prob_gap <= MESH_PROB_TOL and mask_diff == 0, (label, prob_gap, mask_diff)
 
 
-def mesh_phase(card, seed, root, tmp):
-    """The data-parallel paths at world size 2 (gloo, two processes on the
-    card) and 1 (NCCL, this process) against one process without a mesh."""
+def mesh_phase(card, seed, root, tmp, spatial_rows):
+    """The data-parallel and the spatial paths at world size 2 (gloo, two
+    processes on the card) and 1 (NCCL, this process) against one process
+    without a mesh. ``spatial_rows`` (the forward kernel at the W-sharded
+    step's classes) get their launches a step on rank 0."""
     t0 = time.perf_counter()
     inputs = mesh_inputs(seed, root, tmp)
     print(f"mesh: inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
     one = mesh_paths(None, inputs, os.path.join(tmp, "mesh-one", "hippo"))
+    # (e)'s f32 steps on the meshes and the nudges start from these
+    inputs["follow"] = one["spatial f32"]["starts"]
     # how far the one process moves from itself when one input moves by
     # one rounding
     t0 = time.perf_counter()
@@ -4331,6 +4731,10 @@ def mesh_phase(card, seed, root, tmp):
                       for key in ("grads", "updates")} for nudge, run in nudged.items()}
     floor = {key: [max(f[key][k] for f in floors.values()) for k in range(MESH_STEPS)]
              for key in ("grads", "updates")}
+    spatial_nudged = {nudge: nudged_spatial_steps(inputs, *nudge) for nudge in MESH_NUDGES}
+    spatial_floor = {key: [max(flat_gaps([run], one["spatial f32"], key)[k]
+                               for run in spatial_nudged.values()) for k in range(MESH_STEPS)]
+                     for key in ("grads", "updates")}
     nudged_s = time.perf_counter() - t0
     print("mesh: the one process against itself, f32 |nudged - one| / |one| after steps "
           "1/2/3: " + "; ".join(
@@ -4344,6 +4748,13 @@ def mesh_phase(card, seed, root, tmp):
     nccl = nccl_world(inputs, os.path.join(tmp, "mesh-nccl"))
     mesh_checks(card, f"gloo world {MESH_WORLD}", gloo, one, floor)
     mesh_checks(card, "nccl world 1", [nccl], one, floor)
+    spatial_checks(card, f"gloo world {MESH_WORLD}", gloo, one, spatial_floor)
+    spatial_checks(card, "nccl world 1", [nccl], one, spatial_floor)
+    for row in spatial_rows:
+        dtype = row["_key"][0]
+        steps = gloo[0][f"spatial {DTYPE_NAMES[getattr(torch, dtype[6:])]}"]
+        row["launches"] = steps["by_shape"]["fwd"][row["_key"]] // MESH_STEPS
+        assert row["launches"] > 0, row["name"]
     names = sorted(n for n in os.listdir(os.path.join(root, "subjects"))
                    if n.startswith("cbbrain"))[:HIPPO_SUBJECTS["validation"]]
     labels = {side: hippo_outputs(os.path.join(tmp, f"mesh-{side}", "hippo"), root, names,
@@ -4377,6 +4788,32 @@ def mesh_phase(card, seed, root, tmp):
           + ", ".join(f"rank {r} {run['ms_ms']:.1f} ms ({run['ms_launches']} launches)"
                       for r, run in enumerate(gloo))
           + f"; nccl world 1 {nccl['ms_ms']:.1f} ms [{card}]", flush=True)
+    for dtype in DTYPES:
+        key = f"spatial {DTYPE_NAMES[dtype]}"
+        traffic = gloo[0][key]["traffic"]
+        print(f"mesh (e) spatial train step {DTYPE_NAMES[dtype]}, {SPATIAL_BATCH} whole "
+              f"volumes of 3x{'x'.join(map(str, CROP))}: one process "
+              f"{med(one[key]['ms']):.3f} ms a step ({one[key]['peak']} bytes peak); gloo "
+              f"world {MESH_WORLD} " + ", ".join(
+                  f"rank {r} {med(run[key]['ms']):.3f} ms ({run[key]['peak']} bytes peak)"
+                  for r, run in enumerate(gloo))
+              + f" (W slabs of {CROP[0] // MESH_WORLD}, "
+              f"{'/'.join(map(str, gloo[0][key]['launches']))} launches a step on each rank; "
+              f"halo exchanges a step on rank 0: {traffic.get('calls', 0)} calls, "
+              f"{traffic.get('bytes', 0)} bytes contributed); nccl world 1 "
+              f"{med(nccl[key]['ms']):.3f} ms (medians of {MESH_STEPS}) [{card}]", flush=True)
+    print(f"mesh (f) PatchPredict(volume_sharded=True, shape_bucket={SHARDED_BUCKET}) on "
+          f"the msseg2 subject, f32: "
+          f"one process {one['sharded_ms_ms']:.1f} ms ({one['sharded_ms_patches']} patches); "
+          f"gloo world {MESH_WORLD} " + ", ".join(
+              f"rank {r} {run['sharded_ms_ms']:.1f} ms ({run['sharded_ms_patches']} patches)"
+              for r, run in enumerate(gloo)) + f"; nccl world 1 {nccl['sharded_ms_ms']:.1f} ms "
+          f"[{card}]", flush=True)
+    print("mesh: seconds of the spatial parts (d) / (e) / (f): one process "
+          + " / ".join(f"{v:.1f}" for v in one["spatial_parts_s"]) + "; gloo " + "; ".join(
+              f"rank {r} " + " / ".join(f"{v:.1f}" for v in run["spatial_parts_s"])
+              for r, run in enumerate(gloo)) + "; nccl "
+          + " / ".join(f"{v:.1f}" for v in nccl["spatial_parts_s"]) + f" [{card}]", flush=True)
     parts = " / ".join(f"{v:.1f}" for v in one["parts_s"])
     print(f"mesh: seconds of (a) / (b) / (c): one process {parts}; gloo " + "; ".join(
         f"rank {r} " + " / ".join(f"{v:.1f}" for v in run["parts_s"]) for r, run in
@@ -4511,6 +4948,7 @@ def run_phases(args, card):
     phase("kernels N=16", lambda: (
         check_classes(device, args.seed + 16, card, 2 * MESH_BATCH, CONV_CLASSES),
         grad_kernel_phase(device, 2 * MESH_BATCH, args.seed + 16, card, timing=None)))
+    spatial_rows = phase("kernels spatial", spatial_kernel_phase, device, args.seed + 17, card)
     ms_rows = phase("msseg2 kernels", kernel_phase, device, 1, args.seed + 6, card,
                     MS_CONV_CLASSES)
     phase("msseg2 large class", check_classes, device, args.seed + 8, card, MS_LARGE_BATCH,
@@ -4566,13 +5004,15 @@ def run_phases(args, card):
             qsm_rows = phase("qsm-dwi", qsm_dwi_phase, card, args.seed, root, tmp, drop, device)
             cascade_rows = phase("cascade-cleanup", cascade_cleanup_phase, card, args.seed, root,
                                  ms_root, tmp, drop, device)
-            phase("mesh", mesh_phase, card, args.seed, root, tmp)
+            phase("mesh", mesh_phase, card, args.seed, root, tmp, spatial_rows)
     finally:
         shutil.rmtree(ms_root)
+    step_totals(f"per spatial train step on each of {MESH_WORLD} ranks (N={SPATIAL_BATCH})",
+                spatial_rows, lambda row: row["launches"], card)
 
     return [{key: value for key, value in row.items() if not key.startswith("_")}
             for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows
-            + cascade_rows]
+            + cascade_rows + spatial_rows]
 
 
 def main() -> int:
@@ -4584,6 +5024,10 @@ def main() -> int:
     parser.add_argument("--mesh-rank", metavar="FOLDER",
                         help="run one rank of the mesh phase's gloo world on the inputs in "
                              "FOLDER (the phase starts its ranks so, through launch_multihost)")
+    parser.add_argument("--spatial-drift", nargs="+", type=int, metavar="SEED",
+                        help="only run the mesh phase's f32 spatial steps free-running at "
+                             "each seed, on 2 gloo ranks and NCCL world 1 against one "
+                             "process (spatial_drift)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4596,6 +5040,9 @@ def main() -> int:
     try:
         if args.compare:
             compare_requests(card, args.compare, args.seed)
+        elif args.spatial_drift:
+            with tempfile.TemporaryDirectory() as tmp:
+                spatial_drift(card, args.spatial_drift, tmp)
         else:
             rows = run_phases(args, card)
     finally:
@@ -4605,7 +5052,7 @@ def main() -> int:
                   f"; killed {pid}: {line}" for pid, line in leaks), flush=True)
     if leaks:
         raise RuntimeError(f"{len(leaks)} processes were left running")
-    if args.compare:
+    if args.compare or args.spatial_drift:
         return 0
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

@@ -21,9 +21,11 @@ and the device morphology, instance and confusion reductions (fused
 cleanup in PatchPredict, the trainer's device-reduced sweeps); affine TTA
 (EnsembleAffines), the loaders' process workers, the dataset fingerprint,
 the native NIfTI reader, and the tensorboard, image and wandb loggers;
-data-parallel meshes over torch.distributed (parallel/: make_mesh,
-MeshRecipe, the mesh train step and trainer, the sharded TTA ensembles and
-sliding window). The
+meshes over torch.distributed (parallel/: make_mesh, MeshRecipe, the mesh
+train step and trainer, the sharded TTA ensembles and sliding window) and
+spatial sharding over them (halo exchange, the W-sharded NestedResUNet
+forward, make_spatial_train_step and the trainer's spatial_axis, the
+W-sharded sliding window behind PatchPredict(volume_sharded=True)). The
 configurations of dmri_hippo and msseg2 live in
 ``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
 and weight gradients run on hand-written CUDA kernels
@@ -55,7 +57,7 @@ from .prediction import (PatchPredict, Predictor, StandardPredict, add_evaluatio
                          apply_stochastic_matrix)
 from .training import (SGD, Adam, Context, MultiSteps, Ref, SegModel, TorchContext, TrainState,
                        collate_to_device, create_train_state, list_checkpoint_files,
-                       make_train_step)
+                       make_spatial_train_step, make_train_step)
 from .training.trainer import ScheduledEvaluation, SegmentationTrainer
 from .transforms import *  # noqa: F401,F403
 from .typing import PathLike

@@ -39,7 +39,12 @@ def torch_conv_kernel_init(weight: torch.Tensor,
 class Conv3d(nn.Module):
     """torch-style Conv3d on channels-last input. The weight is stored as
     torch's (Cout, Cin, kw, kh, kd); the bias is added after the conv, in the
-    conv output's dtype."""
+    conv output's dtype.
+
+    Inside ``spatially_sharded`` (``spatial`` is a (mesh, axis name) pair)
+    x is this rank's slab of a volume whose W axis is sharded over that
+    axis, and the conv, 3^3/s1/p1 only, is the unsharded one's slab
+    (parallel/halo.py::halo_conv3d, on the hand kernels)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: Any = 3,
                  stride: Any = 1, padding: Any = 0, use_bias: bool = True):
@@ -49,6 +54,7 @@ class Conv3d(nn.Module):
         self.padding = padding
         self.weight = nn.Parameter(torch.empty(features, in_channels, *self.kernel_size))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.spatial = None  # (mesh, axis name) inside spatially_sharded
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -59,9 +65,19 @@ class Conv3d(nn.Module):
                 values = torch.empty(self.bias.shape, dtype=self.bias.dtype)
                 self.bias.copy_(values.uniform_(-bound, bound, generator=generator))
 
+    def shardable(self) -> bool:
+        """Whether the conv runs on W-sharded slabs: the 3^3/s1/p1 class."""
+        return self.kernel_size == (3, 3, 3) and _triple(self.stride) == (1, 1, 1) \
+            and _triple(self.padding) == (1, 1, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = self.weight.permute(2, 3, 4, 1, 0).to(x.dtype)
-        y = conv3d(x, kernel, stride=self.stride, padding=self.padding)
+        if self.spatial is not None:
+            from ..parallel.halo import halo_conv3d
+
+            y = halo_conv3d(x, kernel, *self.spatial)
+        else:
+            y = conv3d(x, kernel, stride=self.stride, padding=self.padding)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -192,8 +208,10 @@ class BatchNorm(nn.Module):
 
     Inside ``data_parallel`` (a mesh's train step) the statistics are those
     of the global batch, as GSPMD computes them in the JAX package: each
-    rank's sums of x and x^2 are summed over the mesh by a differentiable
-    all-reduce, so the running statistics move alike on every rank.
+    rank's sums of x and x^2 are summed over the mesh axes that shard the
+    batch's voxels (its rows, and a spatial axis's W slabs) by a
+    differentiable all-reduce and divided by the global batch's voxel
+    count, so the running statistics move alike on every rank.
     """
 
     MOMENTUM = 0.9
@@ -230,9 +248,9 @@ class BatchNorm(nn.Module):
         else:
             from ..parallel.mesh import all_reduce_sum
 
-            count = xf.numel() // xf.shape[-1] * self.shard.n_global // xf.shape[0]
+            count = xf.numel() // xf.shape[-1] * self.shard.voxels
             sums = all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]),
-                                  self.shard.mesh) / count
+                                  self.shard.mesh, self.shard.axes) / count
             mean = sums[0]
             var = torch.clamp(sums[1] - mean * mean, min=0.0)
         if not self.frozen:
@@ -275,6 +293,35 @@ def data_parallel(module: nn.Module, shard):
     finally:
         for m in members:
             m.shard = None
+
+
+@contextlib.contextmanager
+def spatially_sharded(module: nn.Module, mesh, axis_name: str):
+    """Inside the block, ``module`` (a NestedResUNet) runs on this rank's
+    slab of volumes whose W axis is sharded over the mesh's ``axis_name``:
+    every conv halo-exchanges one row (``Conv3d``), the 2x upsample is
+    ``upsample_trilinear2x_sharded``, pooling stays on the slab. Pair it
+    with ``data_parallel`` in train mode (BatchNorm's statistics over the
+    slabs, dropout masks alike on a sample's slabs). A conv of another
+    class or shape raises: it would compute wrong values at the slab
+    boundaries."""
+    if not getattr(module, "spatially_shardable", False):
+        raise TypeError(f"{type(module).__name__} does not run on W-sharded volumes (the "
+                        "NestedResUNet does)")
+    convs = [m for m in module.modules() if isinstance(m, (nn.Conv3d, _ZeroBiasConv, Conv3d))]
+    for m in convs:
+        if not (isinstance(m, Conv3d) and m.shardable()):
+            raise ValueError(f"spatial sharding supports the 3^3/s1/p1 Conv3d; "
+                             f"{type(m).__name__} {getattr(m, 'kernel_size', '')} would "
+                             f"compute wrong values at the slab boundaries")
+    members = convs + [module]
+    for m in members:
+        m.spatial = (mesh, axis_name)
+    try:
+        yield
+    finally:
+        for m in members:
+            m.spatial = None
 
 
 def channel_dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],

@@ -103,7 +103,7 @@ def _run_folded(model, stacked: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None:
         return model(stacked)
     total = stacked.shape[0]
-    pad = (-total) % mesh.size
+    pad = (-total) % mesh.data_size
     if pad:
         wrap = torch.arange(pad, device=stacked.device) % total
         stacked = torch.cat([stacked, stacked[wrap]])

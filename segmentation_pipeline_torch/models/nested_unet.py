@@ -9,6 +9,14 @@ the blocks in a train-mode forward under autograd, as the JAX package's
 leaves BatchNorm out of every block. ``hypothesis_class`` (built with
 ``hypothesis_params``) is the head after the out conv: the channel softmax
 by default, ``StochasticMatrix`` for the cascade.
+
+Inside ``components.spatially_sharded`` the forward runs on this rank's
+slab of volumes whose W axis is sharded over a mesh axis, as the JAX
+package's ``spatial_shard_axis``: all 25 convs (the blocks', ``res_conv``
+and ``out_conv``) halo-exchange one row, the upsample is
+``upsample_trilinear2x_sharded`` and pooling stays on the slab (the slab
+width must divide by 8). parallel/sharded_model.py serves it;
+training/train_step.py::make_spatial_train_step trains it.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ..ops.convolution import avg_pool3d, upsample_trilinear2x
+from ..ops.convolution import avg_pool3d, upsample_trilinear2x, upsample_trilinear2x_sharded
 from .components import Block3d, Conv3d, Softmax
 from .modular_unet import rematerialized
 
@@ -35,6 +43,9 @@ class NestedResUNet(nn.Module):
     (N, W, H, D, output_channels). In train mode every block draws its
     channel dropout from the generator given to ``forward``."""
 
+    spatially_shardable = True
+    pooling_levels = 3
+
     def __init__(self, input_channels: int, output_channels: int, filters: int = 40,
                  dropout_p: float = 0.0, hypothesis_class: Any = Softmax,
                  hypothesis_params: Optional[Dict] = None, remat: bool = False,
@@ -48,11 +59,15 @@ class NestedResUNet(nn.Module):
                                           use_norm=use_norm))
         self.out_conv = Conv3d(f, output_channels, kernel_size=3, padding=1)
         self.hypothesis = hypothesis_class(**(hypothesis_params or {}))
+        self.spatial = None  # (mesh, axis name) inside spatially_sharded
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         down = lambda t: avg_pool3d(t, 2)  # noqa: E731
-        up = lambda t: upsample_trilinear2x(t, align_corners=True)  # noqa: E731
+        if self.spatial is None:
+            up = lambda t: upsample_trilinear2x(t, align_corners=True)  # noqa: E731
+        else:
+            up = lambda t: upsample_trilinear2x_sharded(t, *self.spatial)  # noqa: E731
         cat = lambda *ts: torch.cat(ts, dim=-1)  # noqa: E731
         remat = self.remat and self.training and torch.is_grad_enabled()
 

@@ -212,3 +212,34 @@ def upsample_trilinear2x(x: torch.Tensor, align_corners: bool = True) -> torch.T
     y = F.interpolate(x.permute(0, 4, 1, 2, 3), size=(2 * w, 2 * h, 2 * d),
                       mode="trilinear", align_corners=align_corners)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def upsample_trilinear2x_sharded(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """``upsample_trilinear2x(x, align_corners=True)`` of a tensor whose W
+    axis is sharded over the mesh's ``axis_name``: x is this rank's slab
+    (N, w, H, D, C) and the result its slab (N, 2w, 2H, 2D, C) of the
+    unsharded upsample. The align-corners source rows come from the global
+    W (2w output rows from coordinate c times 2w on, scale (W - 1) /
+    (2W - 1), in float32 as PyTorch computes it) and are gathered from the
+    slab widened by one row of each neighbour's (parallel/halo.py), in
+    float32; H and D then go through ``F.interpolate``, whose W scale is
+    exactly 1 there, and the result is cast back to x's dtype."""
+    from ..parallel.halo import halo_exchange
+
+    ranks, me = mesh.shape[axis_name], mesh.coords[axis_name]
+    n, w_loc, h, d, c = x.shape
+    w_in = ranks * w_loc
+    x_ext = halo_exchange(x, 1, mesh, axis_name, axis=1)
+    scale = torch.tensor((w_in - 1) / (2 * w_in - 1), dtype=torch.float32)
+    g = torch.arange(2 * w_loc, dtype=torch.float32) + float(me * 2 * w_loc)
+    src = g * scale
+    lo = torch.floor(src).long()
+    hi = torch.clamp(lo + 1, max=w_in - 1)
+    frac = (src - lo.float()).to(x.device).reshape(1, -1, 1, 1, 1)
+    base = me * w_loc - 1  # the global row of x_ext's row 0
+    a = x_ext[:, (lo - base).to(x.device)].float()
+    b = x_ext[:, (hi - base).to(x.device)].float()
+    out = a * (1 - frac) + b * frac
+    y = F.interpolate(out.permute(0, 4, 1, 2, 3), size=(2 * w_loc, 2 * h, 2 * d),
+                      mode="trilinear", align_corners=True)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype)

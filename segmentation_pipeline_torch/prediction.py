@@ -22,8 +22,8 @@ from .core.subject import LabelMap, Subject, collate_subjects
 from .device import resolve_device
 from .ops.bitpack import argmax_ids, fetch_ids, idx_dtype_for, start_fetch
 from .ops.sliding_window import sliding_window_inference
-from .parallel.halo import distributed_sliding_window
-from .parallel.mesh import SPATIAL_ITEM, Mesh, MeshRecipe
+from .parallel.halo import distributed_sliding_window, sharded_volume_sliding_window
+from .parallel.mesh import Mesh, MeshRecipe, gather_w
 from .training.model import SegModel, to_channels_first, to_channels_last
 from .training.train_step import apply_stochastic_matrix_cl
 from .transforms.base import LabelTransform, apply_inverse_on_new_subject
@@ -259,8 +259,13 @@ class PatchPredict(Predictor):
     (``distributed_sliding_window``); every rank then holds the whole
     prediction and goes on as one device does. Pickled, the mesh is its
     ``MeshRecipe``, rebuilt over the process group at the first predict
-    after loading, on the predictor's device. ``volume_sharded=True`` (a
-    W-sharded volume) waits for ROADMAP Queue 1 item 10b.
+    after loading, on the predictor's device. With ``volume_sharded=True``
+    the volume itself is W-sharded over the mesh's data axis, as in the JAX
+    package: each rank uploads only its slab of the (padded) volume, runs
+    ``sharded_volume_sliding_window`` on it (the patches whose start row it
+    holds, read through a halo of one patch width) and the ranks' slabs of
+    the prediction are gathered; W (after ``shape_bucket``) must divide
+    over the ranks, and each slab must be at least a patch wide.
     """
 
     # a trainer's device-confusion plan for one sweep
@@ -275,9 +280,6 @@ class PatchPredict(Predictor):
                  cache_inputs: Optional[bool] = None,
                  device_postprocess: Optional[Sequence] = None,
                  device=None):
-        if volume_sharded:
-            raise NotImplementedError(
-                f"PatchPredict(volume_sharded=True) waits for the port of {SPATIAL_ITEM}")
         self.image_names = list(image_names)
         self.patch_batch_size = patch_batch_size
         self.patch_size = patch_size
@@ -289,6 +291,7 @@ class PatchPredict(Predictor):
         self.cache_inputs = cache_inputs
         self.device_postprocess = list(device_postprocess) if device_postprocess else None
         self.mesh = mesh
+        self.volume_sharded = volume_sharded
         self.device = resolve_device(device)
 
     def __getstate__(self):
@@ -301,6 +304,7 @@ class PatchPredict(Predictor):
     def __setstate__(self, state):
         # attributes newer than a pickled checkpoint
         state.setdefault("mesh", None)
+        state.setdefault("volume_sharded", False)
         state.setdefault("device_postprocess", None)
         state.setdefault("cache_inputs", None)
         state.setdefault("device_argmax", False)
@@ -316,10 +320,13 @@ class PatchPredict(Predictor):
 
     def _upload(self, data, pad, padded: bool, dtype: Optional[torch.dtype]) -> torch.Tensor:
         """Pad on the host, cast there (to ``dtype`` through torch, since
-        numpy has no bfloat16), then one host-to-device copy."""
+        numpy has no bfloat16), then one host-to-device copy (of this
+        rank's W slab where the volume is sharded)."""
         volume = np.asarray(data)
         if padded:
             volume = self._pad_volume(volume, pad)
+        if self.volume_sharded and self.mesh is not None:
+            volume = volume[:, self.mesh.w_slab(volume.shape[1], self.mesh.data_axis)]
         volume = torch.as_tensor(volume, dtype=torch.float32)
         if dtype is not None:
             volume = volume.to(dtype)
@@ -376,12 +383,18 @@ class PatchPredict(Predictor):
         model_fn, dtype = self._model_fn(model)
         if isinstance(self.mesh, MeshRecipe):
             self.mesh = self.mesh.build(self.device)
-        if self.mesh is None:
+        mesh = self.mesh
+        if mesh is None:
             window = sliding_window_inference
+        elif self.volume_sharded:
+            def window(slab, fn, size, overlap, batch, mode):
+                y = sharded_volume_sliding_window(slab, fn, size, overlap, mode, mesh=mesh,
+                                                  axis_name=mesh.data_axis, patch_batch=batch)
+                return gather_w(y, mesh, mesh.data_axis, dim=1)
         else:
             def window(volume, fn, size, overlap, batch, mode):
                 return distributed_sliding_window(volume, fn, size, overlap, batch, mode,
-                                                  mesh=self.mesh)
+                                                  mesh=mesh)
 
         out_subjects, preds = [], []
         plan = self._confusion_plan if self.device_argmax else None
@@ -413,7 +426,7 @@ class PatchPredict(Predictor):
             padded = any(p[1] for p in pad)
             if self.cache_inputs:
                 key = ("swi", tuple(targets), str(self.padding_mode), str(dtype),
-                       str(self.device))
+                       str(self.device), bool(self.volume_sharded and self.mesh is not None))
                 volume = image.device_mirror(
                     key, lambda data, pad=pad, padded=padded: self._upload(data, pad, padded,
                                                                            dtype))

@@ -43,8 +43,13 @@ and skip the writes. Scheduled training evaluators see the global batch's
 predictions, gathered from the ranks. Each iteration the ranks vote on
 stopping (the time budget, a stop signal), so all stop at one iteration.
 
-What the JAX trainer also does and the port does not yet (``spatial_axis``)
-raises ``NotImplementedError`` with the ROADMAP item that brings it.
+With a ``spatial_axis`` the mesh also shards W: each host-loaded batch of
+whole volumes ships in float32 and one-hot, each rank takes its slab of W
+(and its rows over the mesh's 'data' axis where that axis is wider than 1)
+and the step is training/train_step.py::make_spatial_train_step. Scheduled
+training evaluators see the whole prediction, gathered from the slabs. As
+in the JAX package, spatial sharding refuses the device augmentation and
+the device cache.
 """
 from __future__ import annotations
 
@@ -70,13 +75,13 @@ from ..data.subject_filters import AnyFilter, RequireAttributes
 from ..evaluators import Evaluator
 from ..loggers import Logger, NonLogger
 from ..ops.bitpack import start_fetch
-from ..parallel.mesh import BatchShard, all_gather_rows, any_rank
+from ..parallel.mesh import BatchShard, all_gather_rows, any_rank, gather_w
 from ..prediction import Predictor, _attach_prediction, add_evaluation_labels
 from ..utils.misc import auto_str, time_str_to_seconds
 from ..utils.timer import Timer
 from .model import to_channels_first
 from .train_step import (TrainState, _normalize_compute_dtype, collate_to_device,
-                         create_train_state, make_train_step)
+                         create_train_state, make_spatial_train_step, make_train_step)
 
 EXIT = threading.Event()
 EXIT.clear()
@@ -159,10 +164,6 @@ def upload_batch(batch_cf, n_classes, device, mesh=None):
     return batch if n_classes is None else expand_ids(batch, n_classes)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} waits for the port of ROADMAP Queue 1 {item}")
-
-
 def _to_torch(value):
     """A checkpoint's host copies back to tensors (new memory)."""
     if isinstance(value, np.ndarray):
@@ -194,8 +195,8 @@ class SegmentationTrainer:
             raise ValueError(
                 f"device_augmentation={device_augmentation!r}: pass a config "
                 f"dict, {{}} for defaults, None, or 'auto'")
-        if spatial_axis is not None:
-            raise _not_ported("spatial_axis (W-sharded training)", "item 10b (spatial sharding)")
+        if spatial_axis is not None and mesh is None:
+            raise ValueError("spatial_axis requires a mesh")
         self.training_batch_size = training_batch_size
         self.save_rate = save_rate
         self.scoring_interval = scoring_interval
@@ -212,6 +213,10 @@ class SegmentationTrainer:
         # data-parallel training over a parallel.mesh.Mesh (one process per
         # device); None trains on the model's device alone
         self.mesh = mesh
+        # spatially sharded training: each volume's W axis sharded over this
+        # mesh axis, through make_spatial_train_step; the mesh's 'data' axis
+        # (where it is wider than 1) shards the batch on top
+        self.spatial_axis = spatial_axis
         # mixed precision: the network runs forward and backward in this
         # dtype ('bfloat16'); parameters, optimizer state, BatchNorm
         # statistics and the loss stay float32. A string keeps the trainer
@@ -244,6 +249,25 @@ class SegmentationTrainer:
         # (iteration, "host" | "probe" | "on", seconds) of each validation
         # sweep's predictions, reductions and probe check
         self.sweep_times = []
+
+    def _spatial_data_axis(self) -> Optional[str]:
+        """The batch axis beside spatial sharding: the mesh's 'data' axis
+        where it exists wider than 1."""
+        if self.mesh is not None and self.mesh.shape.get("data", 1) > 1:
+            return "data"
+        return None
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch of a step's per-rank part (channels-last): W
+        slabs joined over the spatial axis, rows over the batch axis."""
+        mesh = self.mesh
+        if mesh is None:
+            return x
+        if self.spatial_axis is None:
+            return all_gather_rows(x, mesh)
+        x = gather_w(x, mesh, self.spatial_axis, dim=1)
+        data_axis = self._spatial_data_axis()
+        return x if data_axis is None else all_gather_rows(x, mesh, data_axis)
 
     # ---- checkpoint state ---------------------------------------------
     def state_dict(self):
@@ -302,10 +326,13 @@ class SegmentationTrainer:
         over from a previous call in the process, as in the JAX package."""
         logger = logger or NonLogger()
         mesh = self.mesh
+        spatial_axis = self.spatial_axis
         if mesh is not None:
-            if self.training_batch_size % mesh.size:
+            data_axis = self._spatial_data_axis() if spatial_axis else mesh.data_axis
+            shards = 1 if data_axis is None else mesh.shape[data_axis]
+            if self.training_batch_size % shards:
                 raise ValueError(f"training_batch_size={self.training_batch_size} does not "
-                                 f"split over the {mesh.size} ranks of the mesh")
+                                 f"split over the {shards} ranks of the mesh's batch axis")
             if mesh.rank != 0:
                 # rank 0 writes the checkpoints and the log records
                 logger = NonLogger()
@@ -430,6 +457,14 @@ class SegmentationTrainer:
             raise ValueError(
                 "device_cache with a refine_image (cascade) predictor is not supported: the "
                 "prior is prediction-dependent")
+        if spatial_axis is not None and device_aug is not None:
+            raise ValueError(
+                "device_augmentation with spatial_axis (W-sharded volumes) is not supported: "
+                "the warp gathers at computed indices across the whole volume, which is what "
+                "spatial sharding exists to avoid. Augment in the host pipeline, or drop "
+                "spatial_axis")
+        if spatial_axis is not None and self.device_cache:
+            raise ValueError("device_cache with spatial sharding is not supported")
 
         train_step = None
         timer = Timer()
@@ -456,6 +491,12 @@ class SegmentationTrainer:
                 return self._fetch_cached(cache, next(index_iterator), training_dataset,
                                           generator)
             subjects = next(training_iterator)
+            if spatial_axis is not None:
+                # whole volumes in float32 and one-hot; each rank its slab
+                return subjects, collate_to_device(
+                    {key: np.stack([np.asarray(s[key].data) for s in subjects]).astype(
+                        np.float32) for key in ("X", "y")},
+                    mesh=mesh, data_axis=self._spatial_data_axis(), spatial_axis=spatial_axis)
             batch_cf, n_classes = stack_batch(subjects, self.compute_dtype)
             if refine_image is not None:
                 # the cascade's prior rides along for the step's refinement
@@ -497,16 +538,22 @@ class SegmentationTrainer:
                         step=self.iteration, params=model.params,
                         batch_stats=model.batch_stats,
                         opt_state=self._optimizer_for(model, optimizer))
-                    train_step = make_train_step(model.module, criterion, optimizer,
-                                                 mesh=mesh, sagittal_split=sagittal_split,
-                                                 compute_dtype=self.compute_dtype,
-                                                 refine_image=refine_image)
+                    if spatial_axis is not None:
+                        train_step = make_spatial_train_step(
+                            model.module, criterion, optimizer, mesh, spatial_axis=spatial_axis,
+                            data_axis=self._spatial_data_axis(),
+                            compute_dtype=self.compute_dtype)
+                    else:
+                        train_step = make_train_step(model.module, criterion, optimizer,
+                                                     mesh=mesh, sagittal_split=sagittal_split,
+                                                     compute_dtype=self.compute_dtype,
+                                                     refine_image=refine_image)
 
                 if device_aug is not None:
                     from ..ops.augment import augment_batch
 
                     shard = None if mesh is None else BatchShard.of(
-                        mesh, batch["X"].shape[0] * mesh.size)
+                        mesh, batch["X"].shape[0] * mesh.data_size)
                     batch["X"], batch["y"] = augment_batch(
                         generator, batch["X"], batch["y"], config=device_aug, shard=shard)
                     batch = expand_ids(batch, compact["n_classes"])  # after the warp
@@ -558,12 +605,11 @@ class SegmentationTrainer:
                     if callable(subjects):  # the cache's lazy batch subjects
                         subjects = subjects()
                     # the global batch's predictions, on a mesh gathered
-                    y_pred_cf = to_channels_first(all_gather_rows(y_pred_cl, mesh)).cpu().numpy()
+                    y_pred_cf = to_channels_first(self._gathered(y_pred_cl)).cpu().numpy()
                     if device_aug is not None:
                         # the prediction lives in the augmented geometry: the
                         # evaluators compare it with the augmented target
-                        y_aug_cf = to_channels_first(
-                            all_gather_rows(batch["y"], mesh)).cpu().numpy()
+                        y_aug_cf = to_channels_first(self._gathered(batch["y"])).cpu().numpy()
                     for i, subject in enumerate(subjects):
                         if device_aug is not None and "y" in subject:
                             subject["y"].set_data(

@@ -13,13 +13,11 @@ it names onto the port:
 
 - ``segmentation_pipeline_tpu.<module>.<name>`` and ``research.<module>.<name>``
   onto the same names under ``segmentation_pipeline_torch`` (and its
-  ``research``); instances are restored by ``__dict__``. The attributes the
-  JAX objects carry and the port's do not (``_JAX_ONLY``) are dropped when
-  they hold the one value the port implements, and raise naming the ROADMAP
-  item that brings any other; the predictors get the port's ``device``.
-  A mesh recipe (the trainer's ``mesh`` or a PatchPredict's) becomes the
-  port's ``parallel.mesh.MeshRecipe``, rebuilt over the loading process's
-  process group when the converted checkpoint loads.
+  ``research``); instances are restored by ``__dict__``; the predictors
+  get the port's ``device``. A mesh recipe (the trainer's ``mesh`` or a
+  PatchPredict's, a W-sharded one's too) becomes the port's
+  ``parallel.mesh.MeshRecipe``, rebuilt over the loading process's process
+  group when the converted checkpoint loads.
 - optax's state classes onto plain containers with the same fields; the
   model's flax variables go through ``models/convert.py``, Adam's
   ``mu``/``nu``/``count`` become ``torch.optim.Adam``'s ``exp_avg``/
@@ -52,16 +50,11 @@ from ..models.convert import flax_to_state_dict
 from ..prediction import PatchPredict, StandardPredict
 from ..training.context import Context, _FunctionPayload, _restore, list_checkpoint_files
 from ..training.optimizers import MultiSteps
-from ..training.trainer import SegmentationTrainer, _not_ported
+from ..training.trainer import SegmentationTrainer
 
 JAX_PACKAGE = "segmentation_pipeline_tpu"
 PORT_PACKAGE = "segmentation_pipeline_torch"
 JAX_ONLY_MODULES = ("jax", "jaxlib", "flax", "orbax", "chex")
-
-# modules that the port does not have yet, with their ROADMAP item
-NOT_PORTED_MODULES = {
-    "segmentation_pipeline_tpu.parallel.sharded_model": "item 10b (spatial sharding)",
-}
 
 # optax's state classes by name, with their fields
 OPTAX_STATES = {"ScaleByAdamState": ("count", "mu", "nu"), "TraceState": ("trace",),
@@ -69,11 +62,6 @@ OPTAX_STATES = {"ScaleByAdamState": ("count", "mu", "nu"), "TraceState": ("trace
                 "MultiStepsState": ("mini_step", "gradient_step", "inner_opt_state",
                                     "acc_grads", "skip_state")}
 
-# attributes of JAX objects that the port's objects lack, by class name:
-# the value the port implements, and the ROADMAP item that brings others
-_JAX_ONLY = {
-    "PatchPredict": {"volume_sharded": (False, "item 10b (spatial sharding)")},
-}
 # run-time caches of the JAX objects, dropped whatever they hold
 _JAX_CACHES = {"StandardPredict": ("_confusion_plan",)}
 
@@ -96,9 +84,6 @@ def _optax_state(name):
 
 def _port_module(module: str) -> str:
     """The port's module for a module of the JAX package or of research/."""
-    for prefix, item in NOT_PORTED_MODULES.items():
-        if module == prefix or module.startswith(prefix + "."):
-            raise _not_ported(f"{module} (pickled in the checkpoint)", item)
     if module.split(".")[0] in JAX_ONLY_MODULES:
         raise JaxCheckpointError(f"the checkpoint pickles the module {module}, which cannot "
                                  "be read without JAX")
@@ -167,9 +152,6 @@ def _fix_objects(params):
         state = vars(obj)
         for attr in _JAX_CACHES.get(cls, ()):
             state.pop(attr, None)
-        for attr, (value, item) in _JAX_ONLY.get(cls, {}).items():
-            if attr in state and state.pop(attr) != value:
-                raise _not_ported(f"{cls}({attr}=...) other than {value!r}", item)
         if isinstance(obj, (StandardPredict, PatchPredict)):
             obj.device = torch.device("cuda")
 

@@ -225,11 +225,16 @@ def _trainer(checkpoint):
     return next(d for d in checkpoint["component_definitions"] if d["name"] == "trainer")
 
 
-def test_unported_contents_raise_naming_their_item(checkpoints):
+def test_unported_contents_raise_naming_their_item(checkpoints, tmp_path):
     """orbax array storage stays out by design (it needs JAX): the message
-    says how to re-save; a W-sharded PatchPredict (volume_sharded) waits
-    for item 10b."""
-    _, ckpt, _ = checkpoints["dmri_hippo"]
+    says how to re-save. A W-sharded PatchPredict (volume_sharded) and a
+    pickled object of the JAX package's parallel/sharded_model.py waited
+    for item 10b: now they convert to the port's, and the predictor serves
+    over a one-rank mesh what it serves without one."""
+    import jax
+    from segmentation_pipeline_tpu.parallel.sharded_model import spatial_sharded_inference
+
+    root, ckpt, _ = checkpoints["dmri_hippo"]
     _, ms_ckpt, _ = checkpoints["msseg2"]
 
     def orbax(c):
@@ -239,10 +244,26 @@ def test_unported_contents_raise_naming_their_item(checkpoints):
         convert_checkpoint_data(_jax_payload(ckpt, orbax))
 
     def sharded(c):
-        _trainer(c)["params"]["validation_predictor"].volume_sharded = True
+        predictor = _trainer(c)["params"]["validation_predictor"]
+        predictor.volume_sharded = True
+        predictor.mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
+        c["sharded_forward"] = spatial_sharded_inference
 
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        convert_checkpoint_data(_jax_payload(ms_ckpt, sharded))
+    converted = convert_checkpoint_data(_jax_payload(ms_ckpt, sharded))
+    assert converted["sharded_forward"] is tsp.parallel.spatial_sharded_inference
+    del converted["sharded_forward"]
+    path = tmp_path / "sharded.ckpt"
+    tsp.Context.write_snapshot(converted, path)
+    context = loaded(tsp, path, checkpoints["msseg2"][0])
+    predictor = context.trainer.validation_predictor
+    assert type(predictor) is tsp.PatchPredict and predictor.volume_sharded
+    subject = context.dataset.get_cohort_dataset(COHORTS["msseg2"])[0]
+    outs = []
+    for mesh_of in (lambda: predictor.mesh, lambda: None):
+        predictor.mesh = mesh_of()
+        _, batch = predictor.predict(context.model, [subject])
+        outs.append(batch["y_pred"])
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=1e-6)
 
 
 def test_meshes_convert(checkpoints, tmp_path):

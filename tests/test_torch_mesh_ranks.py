@@ -10,7 +10,7 @@ with a timeout on the process group and on every join, so a hang fails in
 seconds. Every rank runs the same code from the same seed, as the mesh's
 users do.
 
-Cases: the one-rank mesh, recipes and what still raises (item 10b); the
+Cases: the one-rank mesh, recipes and what raises; the
 mesh train step at 2 ranks against the one-device step with dropout 0.2
 and the sagittal split (the dropout masks bit for bit at their global
 rows, the loss within 1e-5); the mesh trainer (dmri_hippo's fast path: the
@@ -356,8 +356,11 @@ def stop_ranks(rank, world, root, how):
 def test_one_rank_mesh_recipes_and_what_raises():
     """Without a process group a mesh has one rank on the caller's device;
     its collectives are the identity. A recipe rebuilds it and refuses a
-    mesh larger than the group; axes other than the data axis shard
-    volumes (item 10b)."""
+    mesh larger than the group, and so does a mesh of 2 ranks built by
+    hand without one. A spatial axis shards W (a one-rank mesh keeps it
+    whole), and a PatchPredict over a W-sharded volume keeps its flag and
+    its mesh's recipe when pickled (several ranks:
+    tests/test_torch_spatial_ranks.py)."""
     assert not dist.is_initialized()
     mesh = tsp.make_mesh(device="cpu")
     assert (mesh.shape, mesh.rank, mesh.size, mesh.distributed) == ({"data": 1}, 0, 1, False)
@@ -371,13 +374,17 @@ def test_one_rank_mesh_recipes_and_what_raises():
         tsp.MeshRecipe(("data",), (2,)).build("cpu")
     with pytest.raises(RuntimeError, match="needs a process group of 2"):
         tsp.make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(ValueError, match="a mesh of 2 ranks needs a process group"):
         tmesh.Mesh(("data", "model"), (1, 2), 0, "cpu", False)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tsp.collate_to_device({"X": np.zeros((1, 1, 2, 2, 2))}, device="cpu", mesh=mesh,
-                              spatial_axis="model")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tsp.PatchPredict(patch_size=8, volume_sharded=True, device="cpu")
+    spatial = tsp.make_mesh(1, ("data", "spatial"), (1, 1), device="cpu")
+    assert spatial.coords == {"data": 0, "spatial": 0} and spatial.w_slab(8, "spatial") == \
+        slice(0, 8)
+    X = np.arange(16.0, dtype=np.float32).reshape(1, 1, 4, 2, 2)
+    batch = tsp.collate_to_device({"X": X}, mesh=spatial, spatial_axis="spatial")
+    np.testing.assert_array_equal(batch["X"].numpy(), np.moveaxis(X, 1, -1))
+    predictor = pickle.loads(pickle.dumps(tsp.PatchPredict(patch_size=8, volume_sharded=True,
+                                                           mesh=spatial, device="cpu")))
+    assert predictor.volume_sharded and predictor.mesh.shape == (1, 1)
     padded, n = tsp.parallel.pad_batch_to_devices({"X": np.ones((5, 2)), "y": np.ones((5, 3))}, 4)
     assert n == 5 and padded["X"].shape == (8, 2) and padded["X"][5:].sum() == 0
     batch = tsp.parallel.shard_batch({"X": np.arange(4)}, mesh)

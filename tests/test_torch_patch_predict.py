@@ -243,8 +243,10 @@ def test_lazy_batch_collates_on_first_access():
 def test_device_postprocess_and_multi_device_wait_for_their_slices(pair):
     """device_postprocess (ported with the device morphology) needs
     device_argmax and cleans the ids as JAX's fused predictor does; a
-    W-sharded volume (volume_sharded) still waits for its slice (mesh=
-    runs since item 10a: tests/test_torch_mesh.py)."""
+    W-sharded volume (volume_sharded, ported with spatial sharding) on a
+    one-rank mesh serves JAX's one-device volume-sharded prediction (mesh= runs since
+    item 10a: tests/test_torch_mesh.py; several ranks:
+    tests/test_torch_spatial.py)."""
     jmodel, model = pair
     subjects = _subjects(tsp, [(8, 8, 8)])
     with pytest.raises(ValueError, match="requires device_argmax"):
@@ -257,5 +259,12 @@ def test_device_postprocess_and_multi_device_wait_for_their_slices(pair):
                               device_postprocess=chain).predict(jmodel,
                                                                 _subjects(jsp, [(10, 9, 6)]))
     np.testing.assert_array_equal(out[0]["y_pred"].data, ref[0]["y_pred"].data)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tsp.PatchPredict(patch_size=8, volume_sharded=True, device="cpu")
+    from segmentation_pipeline_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    shape = [(16, 12, 10)]
+    out, _ = tsp.PatchPredict(patch_size=8, patch_overlap=4, volume_sharded=True,
+                              mesh=tsp.make_mesh(device="cpu"), device="cpu").predict(
+        model, _subjects(tsp, shape))
+    ref, _ = jsp.PatchPredict(patch_size=8, patch_overlap=4, volume_sharded=True,
+                              mesh=jax_make_mesh(1)).predict(jmodel, _subjects(jsp, shape))
+    np.testing.assert_allclose(out[0]["y_pred"].data, ref[0]["y_pred"].data, atol=1e-5)

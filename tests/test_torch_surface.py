@@ -1,6 +1,5 @@
 """The port's public surface against the JAX package's, on the CPU: the
-facade's names (less what waits for spatial sharding and the XLA
-compilation cache), the sweep script's lines, the helpers of utils/misc.py,
+facade's names (less the XLA compilation cache), the sweep script's lines, the helpers of utils/misc.py,
 typing.PathLike, TorchContext and Context.remove_components, the dataset
 fingerprint (with and without a transform, and its saved JSON), and
 ProfilerTrace's trace file."""
@@ -21,10 +20,8 @@ from segmentation_pipeline_torch.utils import misc as tmisc
 from segmentation_pipeline_torch.utils.timer import ProfilerTrace
 from test_torch_trainer import build_dataset
 
-# ROADMAP Queue 1 item 10b (spatial sharding), and the XLA compilation
-# cache, which has no counterpart on the card
-JAX_ONLY = {"make_spatial_train_step", "enable_compilation_cache",
-            "enable_compilation_cache_from_env"}
+# the XLA compilation cache, which has no counterpart on the card
+JAX_ONLY = {"enable_compilation_cache", "enable_compilation_cache_from_env"}
 # the port's own: its optimizer wrapper and the flax weight bridge
 PORT_ONLY = {"MultiSteps", "flax_to_state_dict", "state_dict_to_flax", "device"}
 

@@ -465,7 +465,11 @@ def hybrid_training_pipeline():
 @pytest.mark.parametrize("case", ["device_cache", "device_augmentation", "mesh", "spatial_axis",
                                   "refine_image", "device_confusion_sweep"])
 def test_what_is_not_ported_raises(e2e, tmp_path, case):
-    """spatial_axis raises naming its ROADMAP item (10b); mesh raised until
+    """spatial_axis raised until item 10b was ported: now a one-rank
+    spatial mesh trains through make_spatial_train_step with the
+    one-device losses, and like JAX's trainer it needs a mesh and refuses
+    the device cache (tests/test_torch_spatial_ranks.py trains 2 ranks);
+    mesh raised until
     item 10a was ported: now a one-rank mesh (no process group) trains
     (tests/test_torch_mesh_ranks.py trains 2 ranks). Of the device
     levers, a hybrid split (a host channel resynthesis) raised with the
@@ -483,7 +487,8 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
     kwargs = {"device_cache": dict(levers),
               "device_augmentation": dict(reversed(levers.items())),
               "mesh": {"mesh": tsp.make_mesh(device="cpu")},
-              "spatial_axis": {"spatial_axis": "w"},
+              "spatial_axis": {"spatial_axis": "w",
+                               "mesh": tsp.make_mesh(1, ("w",), device="cpu")},
               "refine_image": {
                   "train_predictor": tsp.StandardPredict(image_names=["X", "y"],
                                                          refine_image="y_prior", device="cpu"),
@@ -491,7 +496,6 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
                                                               device="cpu")},
               "device_confusion_sweep": {"validation_predictor": tsp.StandardPredict(
                   image_names=["X"], device_argmax=True, device="cpu")}}[case]
-    item = {"spatial_axis": "item 10b"}.get(case)
 
     def context_of(**trainer_kwargs):
         context = build_context(tsp, root, **trainer_kwargs)
@@ -513,10 +517,6 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
         assert context.trainer._hybrid_rt is not None
         assert context.trainer._hybrid_rt.spec.image_order == ["t1"]
-    elif item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            context.init_components()
-            context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
     else:
         context.init_components()
         context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
@@ -525,6 +525,25 @@ def test_what_is_not_ported_raises(e2e, tmp_path, case):
         assert context.trainer.mesh.shape == {"data": 1}
         recipe = context.snapshot()["component_definitions"][-1]["params"]["mesh"]
         assert isinstance(recipe, tsp.MeshRecipe) and recipe.shape == (1,)
+    if case == "spatial_axis":
+        losses = []
+        for trainer_kwargs in (kwargs, {}):
+            records = []
+            logger = tsp.NonLogger()
+            logger.log = records.append
+            context = context_of(**trainer_kwargs)
+            context.init_components()
+            tsp.seed_all(0)
+            context.trainer.train(context, max_iterations=2, logger=logger)
+            losses.append([r["loss"] for r in records if "loss" in r])
+        assert len(losses[0]) == 2
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+        with pytest.raises(ValueError, match="spatial_axis requires a mesh"):
+            context_of(spatial_axis="w").init_components()
+        context = context_of(device_cache=True, **kwargs)
+        context.init_components()
+        with pytest.raises(ValueError, match="device_cache with spatial sharding"):
+            context.trainer.train(context, max_iterations=1, logger=tsp.NonLogger())
     if case == "refine_image":
         context = context_of(device_cache=True, **kwargs)
         context.init_components()
