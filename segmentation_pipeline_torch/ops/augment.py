@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..transforms.random_spatial import ElasticDeformation, _as_range
+from ..utils.timer import span
 
 _F32 = torch.float32
 
@@ -485,7 +486,9 @@ def _host_gates(draws: Dict[str, torch.Tensor], cfg: Dict) -> Dict[str, np.ndarr
                "permute": draws["permute_gate"] < cfg["permute_p"]}
     flips = draws["flip"] < cfg["flip_p"]
     stacked = torch.cat([torch.stack(list(columns.values()), 1).long(), flips.long(),
-                         draws["permute"].long()[:, None]], 1).cpu().numpy()
+                         draws["permute"].long()[:, None]], 1)
+    with span("augment.read", wait=True):  # waits for the draws on the device
+        stacked = stacked.cpu().numpy()
     out = {k: stacked[:, i].astype(bool) for i, k in enumerate(columns)}
     out["flip"] = stacked[:, len(columns):len(columns) + 3].astype(bool)
     out["permute_id"] = stacked[:, -1]

@@ -23,6 +23,10 @@ are the output phases' (``transposed_by_phases``), whose request came
 within 1% of cuDNN's default there (medians of 10). In bfloat16 cuDNN's
 deterministic transposed conv was as fast as its default, and the grouped
 conv slower.
+
+While torch's profiler records, every library conv call (each forward, each
+backward, each conv of ``transposed_by_phases``) adds one to the
+``library_conv`` counter of utils/timer.py.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.timer import count
 from .conv3x3 import Conv3x3S1P1
 
 
@@ -42,6 +47,18 @@ def _triple(v) -> Tuple[int, int, int]:
     if isinstance(v, int):
         return (v, v, v)
     return tuple(v)
+
+
+def _count_library_conv(direction: str, kind: str, x: torch.Tensor, weight: torch.Tensor,
+                        stride) -> None:
+    """One library conv call on the ``library_conv`` counter (recorded only
+    under the profiler), keyed by direction ('forward', 'backward'), kind
+    ('conv', 'transposed', 'by_phase'), dtype, N, Cin, Cout, the input's
+    spatial shape and the stride. ``weight`` is torch's: (Cout, Cin, ...)
+    for a conv, (Cin, Cout, ...) for a transposed one."""
+    cin, cout = weight.shape[1::-1] if kind == "conv" else weight.shape[:2]
+    count("library_conv", (direction, kind, str(x.dtype).replace("torch.", ""), x.shape[0],
+                           cin, cout, tuple(x.shape[2:]), tuple(stride)))
 
 
 @contextlib.contextmanager
@@ -68,6 +85,8 @@ class _LibraryConv(torch.autograd.Function):
     def forward(ctx, x, weight, stride, padding, output_padding, transposed, deterministic):
         ctx.save_for_backward(x, weight)
         ctx.conv = (stride, padding, output_padding, transposed)
+        _count_library_conv("forward", "transposed" if transposed else "conv", x, weight,
+                            stride)
         with _library_flags(deterministic):
             if transposed:
                 return F.conv_transpose3d(x, weight, stride=stride, padding=padding,
@@ -78,6 +97,8 @@ class _LibraryConv(torch.autograd.Function):
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
         stride, padding, output_padding, transposed = ctx.conv
+        _count_library_conv("backward", "transposed" if transposed else "conv", x, weight,
+                            stride)
         with _library_flags(False):
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 grad, x, weight, None, stride, padding, (1, 1, 1), transposed,
@@ -188,6 +209,7 @@ def transposed_by_phases(x: torch.Tensor, weight: torch.Tensor, stride, padding,
     for lo, h, m, length in zip(reversed(lows), reversed(highs), reversed(rows),
                                 reversed(size)):
         pads += [-lo, m - 1 + h - (length - 1)]
+    _count_library_conv("forward", "by_phase", x, weight, stride)
     y = F.conv3d(F.pad(x, pads) if any(pads) else x, kernel)
     y = y.view(n, *stride, cout, *rows).permute(0, 4, 5, 1, 6, 2, 7, 3)
     y = y.reshape(n, cout, *(m * s for m, s in zip(rows, stride)))

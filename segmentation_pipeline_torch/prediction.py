@@ -29,6 +29,7 @@ from .training.train_step import apply_stochastic_matrix_cl
 from .transforms.base import LabelTransform, apply_inverse_on_new_subject
 from .transforms.spatial import EnforceConsistentAffine
 from .transforms.structural import ConcatenateImages, CopyProperty, RenameProperty
+from .utils.timer import span
 
 
 def split_and_flip(x: torch.Tensor) -> torch.Tensor:
@@ -188,42 +189,48 @@ class StandardPredict(Predictor):
         self.device = resolve_device(device)
 
     def predict(self, model, subjects, label_attributes=None):
-        batch = collate_subjects(subjects, image_names=self.image_names,
-                                 device=self.device, cache=bool(self.cache_inputs))
+        with span("predict", predictor="StandardPredict", subjects=len(subjects)):
+            with span("predict.prepare"):
+                batch = collate_subjects(subjects, image_names=self.image_names,
+                                         device=self.device, cache=bool(self.cache_inputs))
 
-        if self.sagittal_split:
-            y_pred = reverse_split_and_flip(model(split_and_flip(batch["X"])))
-        else:
-            y_pred = model(batch["X"])
-        if self.refine_image is not None:
-            y_pred = apply_stochastic_matrix(y_pred, batch[self.refine_image])
-
-        batch["y_pred"] = y_pred
-        n_ch = y_pred.shape[1]
-        if self.device_argmax and n_ch > 1:
-            ids_dev = argmax_ids(y_pred, 1)
-            plan = self._confusion_plan
-            if plan is not None:
-                # the sweep's counts on the device
+            with span("predict.forward"):
+                if self.sagittal_split:
+                    y_pred = reverse_split_and_flip(model(split_and_flip(batch["X"])))
+                else:
+                    y_pred = model(batch["X"])
+                if self.refine_image is not None:
+                    y_pred = apply_stochastic_matrix(y_pred, batch[self.refine_image])
+                batch["y_pred"] = y_pred
+                n_ch = y_pred.shape[1]
+                # C == 1: the single channel IS the mask/probability — argmax
+                # would collapse it to all-zero ids; the full fetch instead
+                ids_dev = argmax_ids(y_pred, 1) if self.device_argmax and n_ch > 1 else None
+                plan = self._confusion_plan if ids_dev is not None else None
                 joint_pairs = []
+                if plan is not None:
+                    # the sweep's counts on the device
+                    for i, subject in enumerate(subjects):
+                        res = plan.device_joint(subject, ids_dev[i], n_ch)
+                        if res is not None:
+                            joint_pairs.append((subject, res))
+
+            with span("predict.read", wait=True):
+                if plan is not None:
+                    delivered = plan.deliver(joint_pairs) if joint_pairs else []
+                    if plan.skip_fetch and len(delivered) == len(subjects):
+                        # a validated reduction-only sweep: only counts crossed
+                        # the link, no prediction is attached
+                        return list(subjects), batch
+                y_np = y_pred.cpu().numpy() if ids_dev is None else fetch_ids(ids_dev, n_ch)
+
+            with span("predict.finish"):
+                if ids_dev is not None:
+                    y_np = ids_to_onehot(y_np, n_ch, channel_axis=1)
+                out_subjects = []
                 for i, subject in enumerate(subjects):
-                    res = plan.device_joint(subject, ids_dev[i], n_ch)
-                    if res is not None:
-                        joint_pairs.append((subject, res))
-                delivered = plan.deliver(joint_pairs) if joint_pairs else []
-                if plan.skip_fetch and len(delivered) == len(subjects):
-                    # a validated reduction-only sweep: only counts crossed
-                    # the link, no prediction is attached
-                    return list(subjects), batch
-            y_np = ids_to_onehot(fetch_ids(ids_dev, n_ch), n_ch, channel_axis=1)
-        else:
-            # C == 1: the single channel IS the mask/probability — argmax
-            # would collapse it to all-zero ids; fall back to the full fetch
-            y_np = y_pred.cpu().numpy()
-        out_subjects = []
-        for i, subject in enumerate(subjects):
-            out_subjects.append(_attach_prediction(subject, y_np[i], label_attributes))
-        return out_subjects, batch
+                    out_subjects.append(_attach_prediction(subject, y_np[i], label_attributes))
+            return out_subjects, batch
 
 
 class PatchPredict(Predictor):
@@ -373,6 +380,10 @@ class PatchPredict(Predictor):
             f"out_channels={n_ch}. Use the host post_processing functions instead.")
 
     def predict(self, model, subjects, label_attributes=None):
+        with span("predict", predictor="PatchPredict", subjects=len(subjects)):
+            return self._predict(model, subjects, label_attributes)
+
+    def _predict(self, model, subjects, label_attributes):
         if self.device_postprocess and subjects and not self.device_argmax:
             raise self._postprocess_error(None)
         patch_size = self.patch_size
@@ -404,108 +415,115 @@ class PatchPredict(Predictor):
         n_ch = None
 
         def finalize(subject, spatial, padded, n_ch, finish):
-            y_np = finish()
-            if n_ch is not None:
-                if padded:
-                    y_np = y_np[:spatial[0], :spatial[1], :spatial[2]]
-                y_np = ids_to_onehot(y_np, n_ch)
-            elif padded:
-                y_np = y_np[:, :spatial[0], :spatial[1], :spatial[2]]
-            preds.append(y_np)
-            out_subjects.append(_attach_prediction(subject, y_np, label_attributes))
+            with span("predict.read", wait=True):
+                y_np = finish()
+            with span("predict.finish"):
+                if n_ch is not None:
+                    if padded:
+                        y_np = y_np[:spatial[0], :spatial[1], :spatial[2]]
+                    y_np = ids_to_onehot(y_np, n_ch)
+                elif padded:
+                    y_np = y_np[:, :spatial[0], :spatial[1], :spatial[2]]
+                preds.append(y_np)
+                out_subjects.append(_attach_prediction(subject, y_np, label_attributes))
 
         pending = None
         for subject in subjects:
-            image = subject["X"]
-            spatial = image.spatial_shape
-            targets = [max(p, s) for p, s in zip(patch_size, spatial)]
-            if self.shape_bucket:
-                b = self.shape_bucket
-                targets = [((t + b - 1) // b) * b for t in targets]
-            pad = [(0, 0)] + [(0, t - s) for t, s in zip(targets, spatial)]
-            padded = any(p[1] for p in pad)
-            if self.cache_inputs:
-                key = ("swi", tuple(targets), str(self.padding_mode), str(dtype),
-                       str(self.device), bool(self.volume_sharded and self.mesh is not None))
-                volume = image.device_mirror(
-                    key, lambda data, pad=pad, padded=padded: self._upload(data, pad, padded,
-                                                                           dtype))
-            else:
-                volume = self._upload(image.data, pad, padded, dtype)
-            y = self._run_with_batch_degrade(lambda bs: window(
-                volume, model_fn, patch_size, self.patch_overlap, bs, self.overlap_mode))
-            del volume
-            # with one channel, the channel is the mask: an argmax would be 0
-            n_ch = y.shape[0] if self.device_argmax and y.shape[0] > 1 else None
-            if self.device_postprocess and n_ch is None:
-                raise self._postprocess_error(y.shape[0])
-            if n_ch is None:
-                finish = start_fetch(y, None)
-            else:
-                ids = argmax_ids(y, 0)
-                if padded and (self.device_postprocess or plan is not None):
-                    ids = ids[:spatial[0], :spatial[1], :spatial[2]]
-                    padded = False
-                if self.device_postprocess:
-                    # the cleanup on the device: the fetch ships the cleaned ids
-                    from .ops.morphology import apply_device_postprocess
+            with span("predict.prepare"):
+                image = subject["X"]
+                spatial = image.spatial_shape
+                targets = [max(p, s) for p, s in zip(patch_size, spatial)]
+                if self.shape_bucket:
+                    b = self.shape_bucket
+                    targets = [((t + b - 1) // b) * b for t in targets]
+                pad = [(0, 0)] + [(0, t - s) for t, s in zip(targets, spatial)]
+                padded = any(p[1] for p in pad)
+                if self.cache_inputs:
+                    key = ("swi", tuple(targets), str(self.padding_mode), str(dtype),
+                           str(self.device), bool(self.volume_sharded and self.mesh is not None))
+                    volume = image.device_mirror(
+                        key, lambda data, pad=pad, padded=padded: self._upload(data, pad, padded,
+                                                                               dtype))
+                else:
+                    volume = self._upload(image.data, pad, padded, dtype)
+            with span("predict.forward"):
+                y = self._run_with_batch_degrade(lambda bs: window(
+                    volume, model_fn, patch_size, self.patch_overlap, bs, self.overlap_mode))
+                del volume
+                # with one channel, the channel is the mask: an argmax would be 0
+                n_ch = y.shape[0] if self.device_argmax and y.shape[0] > 1 else None
+                if self.device_postprocess and n_ch is None:
+                    raise self._postprocess_error(y.shape[0])
+                if n_ch is None:
+                    finish = start_fetch(y, None)
+                else:
+                    ids = argmax_ids(y, 0)
+                    if padded and (self.device_postprocess or plan is not None):
+                        ids = ids[:spatial[0], :spatial[1], :spatial[2]]
+                        padded = False
+                    if self.device_postprocess:
+                        # the cleanup on the device: the fetch ships the cleaned ids
+                        from .ops.morphology import apply_device_postprocess
 
-                    ids = apply_device_postprocess(ids, self.device_postprocess, n_ch).to(
-                        idx_dtype_for(n_ch))
-                res = plan.device_joint(subject, ids, n_ch) if plan is not None else None
-                if res is not None:
-                    joint_pairs.append((subject, res))
-                if res is not None and plan.skip_fetch:
-                    # a validated reduction-only sweep: no fetch, nothing
-                    # attached, unless delivery fails (then fetched late)
-                    del y
-                    if pending is not None:
-                        finalize(*pending)
-                        pending = None
-                    deferred.append((len(preds), subject, ids))
-                    out_subjects.append(subject)
-                    preds.append(None)
-                    continue
-                finish = start_fetch(ids, n_ch)
-            del y
+                        ids = apply_device_postprocess(ids, self.device_postprocess, n_ch).to(
+                            idx_dtype_for(n_ch))
+                    res = plan.device_joint(subject, ids, n_ch) if plan is not None else None
+                    if res is not None:
+                        joint_pairs.append((subject, res))
+                    # a validated reduction-only sweep fetches nothing, unless
+                    # delivery fails (then fetched late)
+                    finish = None if res is not None and plan.skip_fetch \
+                        else start_fetch(ids, n_ch)
+                del y
             if pending is not None:
                 finalize(*pending)
-            pending = (subject, spatial, padded, n_ch, finish)
+                pending = None
+            if finish is None:
+                # nothing attached
+                deferred.append((len(preds), subject, ids))
+                out_subjects.append(subject)
+                preds.append(None)
+            else:
+                pending = (subject, spatial, padded, n_ch, finish)
         if pending is not None:
             finalize(*pending)
         if joint_pairs:
-            _deliver_deferred(plan, joint_pairs, deferred, preds, n_ch, label_attributes)
+            with span("predict.read", wait=True):
+                _deliver_deferred(plan, joint_pairs, deferred, preds, n_ch, label_attributes)
 
-        batch = _LazyBatch(subjects, self.image_names, cache=bool(self.cache_inputs),
-                           device=self.device)
-        if not preds or any(p is None for p in preds):
-            # no subject, or a reduction-only sweep: no volumes
-            batch["y_pred"] = None
-        elif len({p.shape for p in preds}) == 1:
-            batch["y_pred"] = np.stack(preds)
-        else:
-            # a ragged cohort (what shape_bucket serves) has no rectangular
-            # stack: the per-subject arrays, in subject order
-            batch["y_pred"] = list(preds)
+        with span("predict.finish"):
+            batch = _LazyBatch(subjects, self.image_names, cache=bool(self.cache_inputs),
+                               device=self.device)
+            if not preds or any(p is None for p in preds):
+                # no subject, or a reduction-only sweep: no volumes
+                batch["y_pred"] = None
+            elif len({p.shape for p in preds}) == 1:
+                batch["y_pred"] = np.stack(preds)
+            else:
+                # a ragged cohort (what shape_bucket serves) has no rectangular
+                # stack: the per-subject arrays, in subject order
+                batch["y_pred"] = list(preds)
         return out_subjects, batch
 
 
 def add_evaluation_labels(subjects: Sequence[Subject]):
     """Invert the label-only part of each subject's history on 'y_pred' and
-    'y', and attach 'y_pred_eval' and 'y_eval'."""
-    label_types = list(EVAL_LABEL_TYPES)
-    for subject in subjects:
-        records = subject.get_composed_history()
+    'y', and attach 'y_pred_eval' and 'y_eval' (the predictions' inverse
+    transforms: a ``predict.finish`` span)."""
+    with span("predict.finish", evaluation_labels=len(subjects)):
+        label_types = list(EVAL_LABEL_TYPES)
+        for subject in subjects:
+            records = subject.get_composed_history()
 
-        if "y_pred" in subject:
-            # deepcopy: the transforms mutate in place
-            pred_subject = Subject({"y": copy.deepcopy(subject["y_pred"])})
-            out = apply_inverse_on_new_subject(records, pred_subject,
-                                               include_types=label_types, warn=False)
-            subject.add_image(out.get_first_image(), "y_pred_eval")
+            if "y_pred" in subject:
+                # deepcopy: the transforms mutate in place
+                pred_subject = Subject({"y": copy.deepcopy(subject["y_pred"])})
+                out = apply_inverse_on_new_subject(records, pred_subject,
+                                                   include_types=label_types, warn=False)
+                subject.add_image(out.get_first_image(), "y_pred_eval")
 
-        if "y" in subject:
-            target_subject = Subject({"y": copy.deepcopy(subject["y"])})
-            out = apply_inverse_on_new_subject(records, target_subject,
-                                               include_types=label_types, warn=False)
-            subject.add_image(out.get_first_image(), "y_eval")
+            if "y" in subject:
+                target_subject = Subject({"y": copy.deepcopy(subject["y"])})
+                out = apply_inverse_on_new_subject(records, target_subject,
+                                                   include_types=label_types, warn=False)
+                subject.add_image(out.get_first_image(), "y_eval")

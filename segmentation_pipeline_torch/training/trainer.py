@@ -28,6 +28,11 @@ through pinned memory without blocking the host, so the next batch uploads
 while the step runs. On iterations with nothing scheduled the loss values
 are read one iteration late, from a copy that waits only for their own step
 (``defer_metric_fetch=False`` reads them every iteration).
+Each iteration is a ``trainer.iteration`` span (utils/timer.py) whose
+children name its phases: the fetch, the augmentation, the step's dispatch,
+the loss read (where the host waits for the step), the evaluations, the
+sweep, the checkpoints and the logging. The log record's ``timer`` holds
+the seconds of those phases under the JAX package's keys.
 Dropout, device patch sampling and device augmentation draw from one
 ``torch.Generator`` on the model's device, seeded from the iteration the
 run starts at.
@@ -78,7 +83,7 @@ from ..ops.bitpack import start_fetch
 from ..parallel.mesh import BatchShard, all_gather_rows, any_rank, gather_w
 from ..prediction import Predictor, _attach_prediction, add_evaluation_labels
 from ..utils.misc import auto_str, time_str_to_seconds
-from ..utils.timer import Timer
+from ..utils.timer import Timer, span
 from .model import to_channels_first
 from .train_step import (TrainState, _normalize_compute_dtype, collate_to_device,
                          create_train_state, make_spatial_train_step, make_train_step)
@@ -515,219 +520,260 @@ class SegmentationTrainer:
             nonlocal deferred
             if deferred is None:
                 return
-            vals = deferred["fetch"]()
+            with timer.phase("train_step", "trainer.read_loss", wait=True):
+                vals = deferred["fetch"]()
             rec = {k: float(v) for k, v in zip(deferred["keys"], vals)}
             rec["timer"] = deferred["timer"]
             rec["iteration"] = deferred["iteration"]
-            logger.log(rec)
+            with span("trainer.log"):
+                logger.log(rec)
             deferred = None
 
         try:
             for _ in range(max_iterations):
                 timer.start()
-
-                if pending is None:
-                    subjects, batch = fetch_and_upload()
-                else:
+                with span("trainer.iteration", iteration=self.iteration):
+                    if pending is None:  # nothing prefetched: the first iteration
+                        with timer.phase("data_loading", "trainer.fetch", prefetch=False):
+                            pending = fetch_and_upload()
+                    else:
+                        timer.timestamps["data_loading"] = 0.0
                     subjects, batch = pending
-                timer.stamp("data_loading")
 
-                if train_step is None:
-                    model.ensure_initialized()
-                    self._train_state = TrainState(
-                        step=self.iteration, params=model.params,
-                        batch_stats=model.batch_stats,
-                        opt_state=self._optimizer_for(model, optimizer))
-                    if spatial_axis is not None:
-                        train_step = make_spatial_train_step(
-                            model.module, criterion, optimizer, mesh, spatial_axis=spatial_axis,
-                            data_axis=self._spatial_data_axis(),
-                            compute_dtype=self.compute_dtype)
-                    else:
-                        train_step = make_train_step(model.module, criterion, optimizer,
-                                                     mesh=mesh, sagittal_split=sagittal_split,
-                                                     compute_dtype=self.compute_dtype,
-                                                     refine_image=refine_image)
+                    if train_step is None:
+                        with timer.phase("train_step", "trainer.build_step"):
+                            model.ensure_initialized()
+                            self._train_state = TrainState(
+                                step=self.iteration, params=model.params,
+                                batch_stats=model.batch_stats,
+                                opt_state=self._optimizer_for(model, optimizer))
+                            if spatial_axis is not None:
+                                train_step = make_spatial_train_step(
+                                    model.module, criterion, optimizer, mesh,
+                                    spatial_axis=spatial_axis,
+                                    data_axis=self._spatial_data_axis(),
+                                    compute_dtype=self.compute_dtype)
+                            else:
+                                train_step = make_train_step(
+                                    model.module, criterion, optimizer, mesh=mesh,
+                                    sagittal_split=sagittal_split,
+                                    compute_dtype=self.compute_dtype,
+                                    refine_image=refine_image)
 
-                if device_aug is not None:
-                    from ..ops.augment import augment_batch
-
-                    shard = None if mesh is None else BatchShard.of(
-                        mesh, batch["X"].shape[0] * mesh.data_size)
-                    batch["X"], batch["y"] = augment_batch(
-                        generator, batch["X"], batch["y"], config=device_aug, shard=shard)
-                    batch = expand_ids(batch, compact["n_classes"])  # after the warp
-                self._train_state, loss_dict, y_pred_cl = train_step(
-                    self._train_state, batch, generator)
-
-                # while the step runs on the device, load and upload the next batch
-                try:
-                    pending = fetch_and_upload()
-                except StopIteration:  # infinite iterator in practice
-                    pending = None
-                timer.stamp("next_batch_prefetch")
-
-                loss_keys = list(loss_dict)
-                loss_stack = torch.stack([loss_dict[k] for k in loss_keys])
-
-                # last iteration's deferred record first: its step has ended
-                # or ends while this one queues
-                flush_deferred()
-
-                scheduled_train = [s for s in self.training_evaluators
-                                   if self.iteration % s.interval == 0]
-                scheduled_validation = [s for s in self.validation_evaluators
-                                        if self.iteration % s.interval == 0]
-                # a logging-only iteration reads its loss values one iteration
-                # late (the values are identical; only when the host reads
-                # them changes)
-                busy = (
-                    not self.defer_metric_fetch
-                    or bool(scheduled_train)
-                    or bool(scheduled_validation)
-                    or self.iteration % self.save_rate == 0
-                    or (self.scoring_function is not None
-                        and self.iteration % self.scoring_interval == 0))
-                if not busy:
-                    # logging-only iteration: read the values next iteration
-                    timer.stamp("train_step")
-                    deferred = {"keys": loss_keys, "fetch": start_fetch(loss_stack),
-                                "timer": dict(timer.timestamps),
-                                "iteration": self.iteration}
-                else:
-                    loss_vals = loss_stack.cpu().numpy()
-                    loss_dict = {k: float(v) for k, v in zip(loss_keys, loss_vals)}
-                    timer.stamp("train_step", sync_on=y_pred_cl)
-
-                # scheduled training evaluators see the train-mode predictions
-                training_evaluations = {}
-                if scheduled_train:
-                    if callable(subjects):  # the cache's lazy batch subjects
-                        subjects = subjects()
-                    # the global batch's predictions, on a mesh gathered
-                    y_pred_cf = to_channels_first(self._gathered(y_pred_cl)).cpu().numpy()
                     if device_aug is not None:
-                        # the prediction lives in the augmented geometry: the
-                        # evaluators compare it with the augmented target
-                        y_aug_cf = to_channels_first(self._gathered(batch["y"])).cpu().numpy()
-                    for i, subject in enumerate(subjects):
-                        if device_aug is not None and "y" in subject:
-                            subject["y"].set_data(
-                                y_aug_cf[i].astype(np.asarray(subject["y"].data).dtype))
-                        _attach_prediction(subject, y_pred_cf[i], label_attributes)
-                    add_evaluation_labels(subjects)
-                for scheduled in scheduled_train:
-                    training_evaluations[scheduled.log_name] = scheduled.evaluator(subjects)
-                    timer.stamp(f"evaluation.{scheduled.log_name}")
+                        from ..ops.augment import augment_batch
 
-                # scheduled validation sweep
-                validation_evaluations = {}
-                if scheduled_validation:
-                    t_sweep = time.perf_counter()
-                    validation_filter = self.get_filter_from_scheduled_evaluations(
-                        context.dataset, scheduled_validation)
-                    validation_dataset.set_cohort(validation_filter)
-                    validation_dataloader = self.validation_dataloader_factory.get_data_loader(
-                        dataset=validation_dataset, batch_size=validation_batch_size,
-                        num_workers=num_workers)
-                    use_dev_confusion = False
-                    if confusion_mgr is not None and confusion_mgr.state != "off":
-                        from .device_confusion import sweep_spec
+                        with timer.phase("train_step", "trainer.augment"):
+                            shard = None if mesh is None else BatchShard.of(
+                                mesh, batch["X"].shape[0] * mesh.data_size)
+                            batch["X"], batch["y"] = augment_batch(
+                                generator, batch["X"], batch["y"], config=device_aug,
+                                shard=shard)
+                            batch = expand_ids(batch, compact["n_classes"])  # after the warp
+                    with timer.phase("train_step", "trainer.step"):
+                        self._train_state, loss_dict, y_pred_cl = train_step(
+                            self._train_state, batch, generator)
 
-                        spec = sweep_spec(scheduled_validation, self.validation_predictor)
-                        use_dev_confusion = spec is not None
-                        if use_dev_confusion:
-                            confusion_mgr.configure_sweep(spec)
-                    probe_sweep = use_dev_confusion and confusion_mgr.state == "probe"
-                    sweep_state = confusion_mgr.state if use_dev_confusion else "host"
-                    validation_subjects = []
-                    for val_subjects in validation_dataloader:
-                        if use_dev_confusion:
-                            self.validation_predictor._confusion_plan = confusion_mgr
+                    # while the step runs on the device, load and upload the next batch
+                    with timer.phase("next_batch_prefetch", "trainer.fetch", prefetch=True):
                         try:
-                            val_subjects, _ = self.validation_predictor.predict(
-                                model, val_subjects, label_attributes=label_attributes)
-                        finally:
-                            self.validation_predictor._confusion_plan = None
-                        # subjects reduced on the device carry no prediction
-                        # to invert
-                        add_evaluation_labels([s for s in val_subjects if "y_pred" in s])
-                        validation_subjects += val_subjects
-                    if probe_sweep:
-                        # the probe sweep ran both paths: the device reduction
-                        # goes on only if its counts equal the host chain's
-                        # (and unchecked entries are stripped before the
-                        # evaluators read them)
-                        confusion_mgr.validate_probe(validation_subjects)
-                    self.sweep_times.append((self.iteration, sweep_state,
-                                             time.perf_counter() - t_sweep))
-                    validation_subjects_map = {s["name"]: s for s in validation_subjects}
-                    timer.stamp("model_forward_evaluation")
+                            pending = fetch_and_upload()
+                        except StopIteration:  # infinite iterator in practice
+                            pending = None
 
-                    for scheduled in scheduled_validation:
-                        if scheduled.cohorts is not None:
-                            cohort_evaluations = {}
-                            validation_evaluations[scheduled.log_name] = cohort_evaluations
-                            for cohort_name in scheduled.cohorts:
-                                subject_filter = validation_dataset.cohorts[cohort_name]
-                                filtered = subject_filter(validation_subjects)
-                                # always produce the cohort key: scoring
-                                # functions index it
-                                cohort_evaluations[cohort_name] = scheduled.evaluator(filtered)
-                                timer.stamp(f"evaluation.{scheduled.log_name}.{cohort_name}")
-                        elif scheduled.subjects is not None:
-                            filtered = [validation_subjects_map[name]
-                                        for name in scheduled.subjects]
-                            validation_evaluations[scheduled.log_name] = \
-                                scheduled.evaluator(filtered)
-                            timer.stamp(f"evaluation.{scheduled.log_name}")
+                    loss_keys = list(loss_dict)
+                    loss_stack = torch.stack([loss_dict[k] for k in loss_keys])
 
-                if busy:
-                    log_dict = {**loss_dict, **training_evaluations,
-                                **validation_evaluations}
+                    # last iteration's deferred record first: its step has ended
+                    # or ends while this one queues
+                    flush_deferred()
 
-                if self.iteration % self.save_rate == 0:
-                    logger.save_context(context, "checkpoints/", self.iteration)
-                    timer.stamp("save_checkpoint")
-
-                # scoring_function=None disables scoring, best-checkpoint
-                # tracking and score-based early stopping
-                if (self.scoring_function is not None
-                        and self.iteration % self.scoring_interval == 0):
-                    new_score = float(self.scoring_function(log_dict))
-                    log_dict["model_score"] = new_score
-                    if new_score > self.max_score:
-                        self.max_score = new_score
-                        self.max_score_iteration = self.iteration
-                        logger.save_context(context, "best_checkpoints/", self.iteration)
-                        timer.stamp("save_best_checkpoint")
-
-                if busy:
-                    log_dict["timer"] = dict(timer.timestamps)
-                    log_dict["iteration"] = self.iteration
-                    logger.log(log_dict)
-
-                iterations_with_no_improvement = self.iteration - self.max_score_iteration
-                if (self.scoring_function is not None and
-                        iterations_with_no_improvement > self.max_iterations_with_no_improvement):
-                    print(f"Training stopped on iteration {self.iteration} due to not "
-                          f"improving for {iterations_with_no_improvement} iterations.")
-                    break
-
-                signalled, expired = EXIT.is_set(), time.time() > stop_time
-                # on a mesh the ranks start, and take a signal, apart: they
-                # stop at the same iteration, or one would wait for the
-                # others in the next step's collectives
-                if any_rank(signalled or expired, mesh):
-                    if signalled:
-                        print("Training stopped early due to manual exit signal.")
-                    elif expired:
-                        print("Training time expired.")
+                    scheduled_train = [s for s in self.training_evaluators
+                                       if self.iteration % s.interval == 0]
+                    scheduled_validation = [s for s in self.validation_evaluators
+                                            if self.iteration % s.interval == 0]
+                    # a logging-only iteration reads its loss values one iteration
+                    # late (the values are identical; only when the host reads
+                    # them changes)
+                    busy = (
+                        not self.defer_metric_fetch
+                        or bool(scheduled_train)
+                        or bool(scheduled_validation)
+                        or self.iteration % self.save_rate == 0
+                        or (self.scoring_function is not None
+                            and self.iteration % self.scoring_interval == 0))
+                    if not busy:
+                        # logging-only iteration: read the values next iteration
+                        deferred = {"keys": loss_keys, "fetch": start_fetch(loss_stack),
+                                    "timer": dict(timer.timestamps),
+                                    "iteration": self.iteration}
                     else:
-                        print("Training stopped with another rank of the mesh.")
-                    break
+                        # the read waits for the step: the device's time lands here
+                        with timer.phase("train_step", "trainer.read_loss", wait=True):
+                            loss_vals = loss_stack.cpu().numpy()
+                        loss_dict = {k: float(v) for k, v in zip(loss_keys, loss_vals)}
 
-                self.iteration += 1
+                    # scheduled training evaluators see the train-mode predictions
+                    training_evaluations = {}
+                    if scheduled_train:
+                        with span("trainer.train_eval"):
+                            first = f"evaluation.{scheduled_train[0].log_name}"
+                            with timer.phase(first, "trainer.train_eval.read", wait=True):
+                                # the global batch's predictions, on a mesh gathered
+                                y_pred_cf = to_channels_first(
+                                    self._gathered(y_pred_cl)).cpu().numpy()
+                                if device_aug is not None:
+                                    # the prediction lives in the augmented geometry:
+                                    # the evaluators compare it with the augmented
+                                    # target
+                                    y_aug_cf = to_channels_first(
+                                        self._gathered(batch["y"])).cpu().numpy()
+                            with timer.phase(first, "trainer.train_eval.attach"):
+                                if callable(subjects):  # the cache's lazy batch subjects
+                                    subjects = subjects()
+                                for i, subject in enumerate(subjects):
+                                    if device_aug is not None and "y" in subject:
+                                        subject["y"].set_data(y_aug_cf[i].astype(
+                                            np.asarray(subject["y"].data).dtype))
+                                    _attach_prediction(subject, y_pred_cf[i], label_attributes)
+                                add_evaluation_labels(subjects)
+                            for scheduled in scheduled_train:
+                                with timer.phase(f"evaluation.{scheduled.log_name}",
+                                                 "trainer.train_eval.evaluate",
+                                                 evaluator=scheduled.log_name):
+                                    training_evaluations[scheduled.log_name] = \
+                                        scheduled.evaluator(subjects)
+
+                    # scheduled validation sweep
+                    validation_evaluations = {}
+                    if scheduled_validation:
+                        with timer.phase("model_forward_evaluation", "trainer.sweep"):
+                            t_sweep = time.perf_counter()
+                            validation_filter = self.get_filter_from_scheduled_evaluations(
+                                context.dataset, scheduled_validation)
+                            validation_dataset.set_cohort(validation_filter)
+                            validation_loader = iter(
+                                self.validation_dataloader_factory.get_data_loader(
+                                    dataset=validation_dataset,
+                                    batch_size=validation_batch_size,
+                                    num_workers=num_workers))
+                            use_dev_confusion = False
+                            if confusion_mgr is not None and confusion_mgr.state != "off":
+                                from .device_confusion import sweep_spec
+
+                                spec = sweep_spec(scheduled_validation,
+                                                  self.validation_predictor)
+                                use_dev_confusion = spec is not None
+                                if use_dev_confusion:
+                                    confusion_mgr.configure_sweep(spec)
+                            probe_sweep = use_dev_confusion and confusion_mgr.state == "probe"
+                            sweep_state = confusion_mgr.state if use_dev_confusion else "host"
+                            validation_subjects = []
+                            while True:
+                                with span("trainer.sweep.load", wait=True):
+                                    val_subjects = next(validation_loader, None)
+                                if val_subjects is None:
+                                    break
+                                if use_dev_confusion:
+                                    self.validation_predictor._confusion_plan = confusion_mgr
+                                try:
+                                    val_subjects, _ = self.validation_predictor.predict(
+                                        model, val_subjects, label_attributes=label_attributes)
+                                finally:
+                                    self.validation_predictor._confusion_plan = None
+                                # subjects reduced on the device carry no prediction
+                                # to invert
+                                add_evaluation_labels([s for s in val_subjects
+                                                       if "y_pred" in s])
+                                validation_subjects += val_subjects
+                            if probe_sweep:
+                                # the probe sweep ran both paths: the device
+                                # reduction goes on only if its counts equal the
+                                # host chain's (and unchecked entries are stripped
+                                # before the evaluators read them)
+                                with span("trainer.sweep.probe"):
+                                    confusion_mgr.validate_probe(validation_subjects)
+                            self.sweep_times.append((self.iteration, sweep_state,
+                                                     time.perf_counter() - t_sweep))
+                            validation_subjects_map = {s["name"]: s for s in validation_subjects}
+
+                        with span("trainer.val_eval"):
+                            for scheduled in scheduled_validation:
+                                if scheduled.cohorts is not None:
+                                    cohort_evaluations = {}
+                                    validation_evaluations[scheduled.log_name] = \
+                                        cohort_evaluations
+                                    for cohort_name in scheduled.cohorts:
+                                        with timer.phase(
+                                                f"evaluation.{scheduled.log_name}.{cohort_name}",
+                                                "trainer.val_eval.evaluate",
+                                                evaluator=scheduled.log_name, cohort=cohort_name):
+                                            subject_filter = validation_dataset.cohorts[cohort_name]
+                                            filtered = subject_filter(validation_subjects)
+                                            # always produce the cohort key: scoring
+                                            # functions index it
+                                            cohort_evaluations[cohort_name] = \
+                                                scheduled.evaluator(filtered)
+                                elif scheduled.subjects is not None:
+                                    with timer.phase(f"evaluation.{scheduled.log_name}",
+                                                     "trainer.val_eval.evaluate",
+                                                     evaluator=scheduled.log_name):
+                                        filtered = [validation_subjects_map[name]
+                                                    for name in scheduled.subjects]
+                                        validation_evaluations[scheduled.log_name] = \
+                                            scheduled.evaluator(filtered)
+
+                    if busy:
+                        log_dict = {**loss_dict, **training_evaluations,
+                                    **validation_evaluations}
+
+                    if self.iteration % self.save_rate == 0:
+                        with timer.phase("save_checkpoint", "trainer.checkpoint"):
+                            logger.save_context(context, "checkpoints/", self.iteration)
+
+                    # scoring_function=None disables scoring, best-checkpoint
+                    # tracking and score-based early stopping
+                    if (self.scoring_function is not None
+                            and self.iteration % self.scoring_interval == 0):
+                        with span("trainer.log", scoring=True):
+                            new_score = float(self.scoring_function(log_dict))
+                        log_dict["model_score"] = new_score
+                        if new_score > self.max_score:
+                            self.max_score = new_score
+                            self.max_score_iteration = self.iteration
+                            with timer.phase("save_best_checkpoint", "trainer.checkpoint",
+                                             best=True):
+                                logger.save_context(context, "best_checkpoints/",
+                                                    self.iteration)
+
+                    if busy:
+                        log_dict["timer"] = dict(timer.timestamps)
+                        log_dict["iteration"] = self.iteration
+                        with span("trainer.log"):
+                            logger.log(log_dict)
+
+                    iterations_with_no_improvement = self.iteration - self.max_score_iteration
+                    if (self.scoring_function is not None and
+                            iterations_with_no_improvement
+                            > self.max_iterations_with_no_improvement):
+                        print(f"Training stopped on iteration {self.iteration} due to not "
+                              f"improving for {iterations_with_no_improvement} iterations.")
+                        break
+
+                    signalled, expired = EXIT.is_set(), time.time() > stop_time
+                    # on a mesh the ranks start, and take a signal, apart: they
+                    # stop at the same iteration, or one would wait for the
+                    # others in the next step's collectives
+                    if any_rank(signalled or expired, mesh):
+                        if signalled:
+                            print("Training stopped early due to manual exit signal.")
+                        elif expired:
+                            print("Training time expired.")
+                        else:
+                            print("Training stopped with another rank of the mesh.")
+                        break
+
+                    self.iteration += 1
 
             flush_deferred()
             print("Saving context...")
