@@ -8,9 +8,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. card: the card's name and power limit (nvidia-smi); TF32 off for
    convolutions and matmuls, so float32 stays float32 everywhere.
-2. build: nvcc builds both CUDA sources from segmentation_pipeline_torch/csrc
-   (the conv kernel, which also runs the input gradient dX, and the weight
-   gradient dW), in parallel, and prints their -Xptxas -v logs; g++ builds
+2. build: nvcc builds the three CUDA sources from
+   segmentation_pipeline_torch/csrc (the conv kernel, which also runs the
+   input gradient dX, the weight gradient dW, and the trilinear 2x upsample
+   with its gradient), in parallel, and prints their -Xptxas -v logs; g++ builds
    the native connected-component labeller (csrc/ccl.cpp) that the host
    post-processing and the instance evaluator label on.
 3. kernels: the 3x3x3 conv kernel at each (spatial size, Cin, Cout) class of
@@ -38,7 +39,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rows, widened by 2 halo rows): the forward at N=1 and N=4 and dX and dW
    at N=4, in both types, against the plain versions (integers bit for
    bit), the forward at N=4 timed (rows of the JSON, launches a step from
-   phase 16's rank 0).
+   phase 16's rank 0). Then `kernels upsample`: the trilinear 2x upsample
+   and its gradient at NestedResUNet-40's three level classes (input grids
+   24x44x12, 12x22x6 and 6x11x3 of 40 channels) at N = 8, 16, 32 and 128,
+   in both types, against their plain versions' float32 results (2**-20 of
+   max|x| for the forward, the gradient's sums of up to 125 products at
+   2**-24 each, and one rounding in bfloat16); timed at the TTA request's
+   N=32 in bfloat16 and the train step's N=8 in float32, beside the plain
+   version (F.interpolate and ATen's gradient on the channels-last views),
+   ATen on contiguous NCDHW tensors and the bound (9x the input grid's
+   bytes at 3.35 TB/s); launches from phases 6 and 8.
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
@@ -61,10 +71,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    EnsembleModels("majority"); StandardPredict(sagittal_split=True); the
    inversion of each answer through its subject's tape and the
    post-processing (remove_holes, keep_components). Requests of 4
-   subjects: one untimed and 5 timed in float32, then the same in
+   subjects: one untimed and 3 timed in float32, then the same in
    bfloat16; ms per request, ms for inversion plus post-processing, peak
-   memory, launches (2 forwards of 25 at N=32 per request), and one
-   profiled request in each type. In float32 also: one unrolled request (8
+   memory, launches (2 forwards of 25 at N=32 per request, and 12 of the
+   upsample by class, no gradient), and one profiled request in each type
+   (no ATen trilinear kernel among its device time). In float32 also: one unrolled request (8
    forwards of 25 at N=8, labels equal to the batched one's), one request
    with device_argmax (the bit-packed fetch equal to the plain one), fold
    0's flip members on the first subject against the port on the CPU, and
@@ -110,8 +121,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    from a torch.Generator on the card. 2 warm-up and 5 timed steps in
    float32, then the same in bfloat16; ms per step, volumes/s, peak memory,
    the losses; the kernels' launches per step by class (25 forward, 23 dX,
-   25 dW) and each kind's kernel, plain, cuDNN and bound time per step
-   (float32: both bounds);
+   25 dW; the upsample 6 forward and 6 gradient) and each kind's kernel,
+   plain, cuDNN and bound time per step (float32: both bounds);
    running statistics that moved and conv weights with nonzero gradients.
    Two more steps in float32 and two in bfloat16 run under torch.profiler,
    the first of each as its warm-up, for the device time by kernel and the
@@ -359,6 +370,11 @@ from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_
                                                      conv3x3_s1p1_dw_plain, conv3x3_s1p1_dx,
                                                      conv3x3_s1p1_dx_plain, conv3x3_s1p1_plain,
                                                      reset_launch_counts)
+from segmentation_pipeline_torch.ops import upsample
+from segmentation_pipeline_torch.ops.upsample import (upsample_trilinear2x,
+                                                      upsample_trilinear2x_dx,
+                                                      upsample_trilinear2x_dx_plain,
+                                                      upsample_trilinear2x_plain)
 from segmentation_pipeline_torch.core.subject import collate_subjects
 from segmentation_pipeline_torch.data.loader import extract_patch
 from segmentation_pipeline_torch.data.subject_folder import SubjectFolder
@@ -407,6 +423,10 @@ CONV_CLASSES = [
     ((6, 11, 3), 40, 40, 2),
 ]
 CONVS_PER_FORWARD = 25
+# Its 6 trilinear 2x upsamples a forward, each of 40 channels, by input grid:
+# ((W, H, D), launches per forward); the gradient runs as often a backward.
+UPSAMPLE_CLASSES = [((24, 44, 12), 3), ((12, 22, 6), 2), ((6, 11, 3), 1)]
+UPSAMPLES_PER_FORWARD = 6
 SUBJECTS_PER_REQUEST = 4
 # Timed requests: float32 after one cold request, bfloat16 after one untimed
 # request; host time varies by several ms from request to request.
@@ -458,6 +478,13 @@ CPU_TIE = 1e-3
 # its plain version in the kernel phases.
 CPU_GRAD_TOL = 2e-2
 CPU_LOSS_TOL = 1e-5
+# The upsample kernels against their plain versions' float32 results on the
+# same values (tests/test_torch_upsample.py's limits), relative to the
+# largest input: the forward's f32 blend of 8 values in another order than
+# ATen's; the gradient's sums of up to 125 products of weights summing to at
+# most 8. bfloat16 adds one rounding of the output (2**-8 of the value).
+UPSAMPLE_TOL = {"fwd": 2.0 ** -20, "dx": 125 * 8 * 2.0 ** -24}
+BF16_ROUNDING = 2.0 ** -8
 
 
 def card_line() -> str:
@@ -677,6 +704,129 @@ def grad_kernel_phase(device, batch: int, seed: int, card: str, classes=CONV_CLA
     return rows
 
 
+def upsample_error(kind, src, out):
+    """``out`` of the upsample (``kind`` "fwd", ``src`` its input) or of its
+    gradient ("dx", ``src`` the cotangent) against the plain version's
+    float32 result on src's values: the max abs error and the largest
+    error / limit, elementwise (at most 1 passes)."""
+    ref = (upsample_trilinear2x_plain(src.float()) if kind == "fwd"
+           else upsample_trilinear2x_dx_plain(src.float(), tuple(out.shape)))
+    err = (out.float() - ref).abs()
+    limit = UPSAMPLE_TOL[kind] * src.float().abs().max().item()
+    if out.dtype == torch.bfloat16:
+        limit = limit + BF16_ROUNDING * ref.abs()
+    return err.max().item(), (err / limit).max().item()
+
+
+def upsample_phase(device, seed: int, card: str):
+    """The upsample kernels, forward and gradient, at NestedResUNet-40's
+    three classes at every batch the later phases run them (the slice and
+    the train step at N=8, the mesh's N=16, the TTA request's N=32, the
+    affine TTA's N=128), in float32 and bfloat16, against their plain
+    versions at UPSAMPLE_TOL. Timed at the TTA request's batch in bfloat16
+    and the train step's in float32, beside the plain version (the
+    permute -> F.interpolate -> permute path, and ATen's gradient, on the
+    channels-last views), ATen on contiguous NCDHW tensors and the bound:
+    9x the input grid's bytes (one read of the input and 8x as much written,
+    or the reverse) at 3.35 TB/s. Returns the timed rows; the TTA and train
+    phases fill their launches."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    half_batch = 2 * SUBJECTS_PER_REQUEST
+    timed = {(TTA_BATCH, torch.bfloat16), (half_batch, torch.float32)}
+    rows = []
+    for n in sorted({half_batch, 2 * MESH_BATCH, TTA_BATCH, AFFINE_BATCH}):
+        for dtype in DTYPES:
+            worst = {"fwd": 0.0, "dx": 0.0}
+            for grid, _ in UPSAMPLE_CLASSES:
+                shape = (n, *grid, FILTERS)
+                w, h, d = grid
+                x = (torch.rand(shape, generator=gen, device=device) * 2 - 1).to(dtype)
+                g = (torch.rand((n, 2 * w, 2 * h, 2 * d, FILTERS), generator=gen,
+                                device=device) * 2 - 1).to(dtype)
+                x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
+                g_ncdhw = g.permute(0, 4, 1, 2, 3).contiguous()
+                runs = {
+                    "fwd": (x, lambda: upsample_trilinear2x(x),
+                            lambda: upsample_trilinear2x_plain(x),
+                            lambda: F.interpolate(x_ncdhw, size=(2 * w, 2 * h, 2 * d),
+                                                  mode="trilinear", align_corners=True)),
+                    "dx": (g, lambda: upsample_trilinear2x_dx(g, shape),
+                           lambda: upsample_trilinear2x_dx_plain(g, shape),
+                           lambda: torch.ops.aten.upsample_trilinear3d_backward(
+                               g_ncdhw, [2 * w, 2 * h, 2 * d], [n, FILTERS, w, h, d], True)),
+                }
+                for kind, (src, kernel, plain, library) in runs.items():
+                    out = kernel()
+                    torch.cuda.synchronize()
+                    assert out.dtype == dtype and out.is_contiguous(), (kind, shape)
+                    err, share = upsample_error(kind, src, out)
+                    name = (f"upsample_trilinear2x{'_dx' if kind == 'dx' else ''}_"
+                            f"{DTYPE_NAMES[dtype]} {n}x{'x'.join(map(str, grid))}x{FILTERS}")
+                    if not share <= 1:
+                        raise AssertionError(f"{name}: max abs err {err}, {share:.3g}x the limit")
+                    worst[kind] = max(worst[kind], share)
+                    del out
+                    if (n, dtype) not in timed:
+                        continue
+                    b_ms = 9 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+                    rows.append({
+                        "name": name,
+                        "route": "cuda",
+                        "source": "segmentation_pipeline_torch/csrc/upsample_trilinear2x.cu",
+                        "replaces": "no Pallas kernel (XLA's resize in "
+                                    "segmentation_pipeline_tpu/ops/convolution.py)",
+                        "launches": None,
+                        "max_abs_err": err,
+                        "ms": time_ms(kernel, **TIMING[0]),
+                        "plain_ms": time_ms(plain, **TIMING[0]),
+                        "bound_ms": b_ms,
+                        "bound_by": "bytes",
+                        "library_ms": time_ms(library, **TIMING[0]),
+                        "_key": (kind, str(dtype), n, *grid),
+                    })
+                    r = rows[-1]
+                    print(f"kernel {name}: err {err:.3g} ({share:.3g} of the limit) ms "
+                          f"{r['ms']:.4f} plain {r['plain_ms']:.4f} ATen NCDHW "
+                          f"{r['library_ms']:.4f} bound {b_ms:.4f} (bytes; "
+                          f"{b_ms / r['ms']:.3f} of it) [{card}]", flush=True)
+                del x, g, x_ncdhw, g_ncdhw, runs
+            torch.cuda.empty_cache()
+            print(f"kernel upsample_trilinear2x{{,_dx}}_{DTYPE_NAMES[dtype]} at N={n}, the 3 "
+                  f"classes: within {worst['fwd']:.3g} and {worst['dx']:.3g} of their limits "
+                  f"[{card}]", flush=True)
+    return rows
+
+
+def upsample_counts():
+    """The upsample wrappers' launches by shape (the input's (dtype, N, W, H,
+    D, C)), forward and gradient."""
+    return {kind: Counter(w.launches_by_shape) for kind, w in
+            (("fwd", upsample_trilinear2x), ("dx", upsample_trilinear2x_dx))}
+
+
+def expected_upsamples(dtype, forwards, batch):
+    """The launches by shape of ``forwards`` NestedResUNet-40 forwards (or
+    backwards) at ``batch``."""
+    name = str(dtype).replace("torch.", "")
+    return Counter({(name, batch, *grid, FILTERS): n * forwards
+                    for grid, n in UPSAMPLE_CLASSES})
+
+
+def upsample_totals(label, rows, kind, dtype, n, launches, card):
+    """Time per request or step of one direction's upsample rows (``kind``,
+    ``dtype``, batch ``n``) with ``launches`` (grid -> launches), beside the
+    plain version's, ATen's on NCDHW and the bound."""
+    picked = [(row, launches[tuple(row["_key"][3:])]) for row in rows
+              if row["_key"][:3] == (kind, str(dtype), n)]
+    assert len(picked) == len(UPSAMPLE_CLASSES), picked
+    total = {key: sum(row[key] * m for row, m in picked)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"{label} upsample {kind} {DTYPE_NAMES[dtype]}: kernel {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f}, ATen NCDHW {total['library_ms']:.4f}, bound "
+          f"{total['bound_ms']:.4f} ({sum(m for _, m in picked)} launches) [{card}]",
+          flush=True)
+
+
 def flax_weights(rng: np.random.Generator, filters: int = FILTERS):
     """Random NestedResUNet(3 -> 2, filters) variables in the flax layout:
     torch's conv init, BatchNorm statistics with positive, non-unit
@@ -758,9 +908,11 @@ def run_requests(model, predictor, subjects, requests):
 
 def launches_counted(run):
     """``run()`` with the forward kernel's counts set to 0 just before and
-    read just after."""
+    read just after; the upsample's counts are set to 0 with them
+    (upsample_counts reads them)."""
     conv3x3_s1p1.launches = 0
     conv3x3_s1p1.launches_by_shape.clear()
+    upsample.reset_launch_counts()
     out = run()
     return out, conv3x3_s1p1.launches, Counter(conv3x3_s1p1.launches_by_shape)
 
@@ -825,6 +977,20 @@ def profile_request(model, predictor, subjects, name, card):
     conv_ms = sum(e.self_device_time_total for e in picked) / 1e3
     print(f"profile {name} request: conv3x3_s1p1 kernels {conv_ms:.3f} ms in "
           f"{sum(e.count for e in picked)} launches, of {busy_ms:.3f} ms device time", flush=True)
+    upsample_profile(events, f"{name} request", busy_ms)
+
+
+def upsample_profile(events, label, busy_ms):
+    """Print the upsample kernels' device time; no ATen trilinear kernel
+    may run (every trilinear upsample off the spatial-sharded path is the
+    hand kernel's)."""
+    picked = [e for e in events if "upsample_trilinear2x" in e.key]
+    aten = [e.key for e in events if "upsample_trilinear3d" in e.key]
+    assert not aten, f"{label}: ATen's trilinear kernels ran: {aten}"
+    print(f"profile {label}: upsample_trilinear2x{{,_dx}}_kernel "
+          f"{sum(e.self_device_time_total for e in picked) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in picked)} launches, of {busy_ms:.3f} ms device time; "
+          "no ATen upsample_trilinear3d kernel", flush=True)
 
 
 def slice_phase(card, seed, rows):
@@ -1107,12 +1273,13 @@ def check_orientation_grids(device, seed, card):
           flush=True)
 
 
-def tta_phase(card, seed, rows):
+def tta_phase(card, seed, rows, up_rows):
     """dmri_hippo TTA serving on the card: requests of 4 raw subjects
     (112x104x20) through the default pipeline, 2 folds of NestedResUNet-40
     under batched flip TTA and a majority vote, StandardPredict with the
     sagittal split, the inversion to the scanner grid and the
-    post-processing; f32, then bf16. Fills the launches of the N=32 rows."""
+    post-processing; f32, then bf16. Fills the launches of the N=32 rows
+    (over the timed requests) and of the upsample rows (per request)."""
     rng = np.random.default_rng(seed + 5)
     pool = tta_subjects(rng, 2 * SUBJECTS_PER_REQUEST)
     folds = fold_models(seed, "cuda")
@@ -1133,13 +1300,18 @@ def tta_phase(card, seed, rows):
         assert launches == TTA_REQUESTS * per_request, launches
         assert by_shape == expected_launches(dtype, TTA_REQUESTS * FOLDS, TTA_BATCH), by_shape
         by_dtype[str(dtype)] = by_shape
+        up = upsample_counts()
+        assert up["fwd"].total() == TTA_REQUESTS * FOLDS * UPSAMPLES_PER_FORWARD, up
+        assert up == {"fwd": expected_upsamples(dtype, TTA_REQUESTS * FOLDS, TTA_BATCH),
+                      "dx": Counter()}, up
         for key, values in times.items():
             print(f"tta {name} {key}: " + ", ".join(f"{t:.3f}" for t in values) + " ms",
                   flush=True)
         med = {key: statistics.median(values) for key, values in times.items()}
         print(f"tta {name}: median {med['request']:.3f} ms per request over {TTA_REQUESTS} "
               f"({FOLDS} folds x {2 ** len(FLIP_DIMS)} flips, {per_request} launches per request "
-              f"at N={TTA_BATCH}), {SUBJECTS_PER_REQUEST / med['request'] * 1e3:.3f} volumes/s, "
+              f"at N={TTA_BATCH}, {FOLDS * UPSAMPLES_PER_FORWARD} upsample launches), "
+              f"{SUBJECTS_PER_REQUEST / med['request'] * 1e3:.3f} volumes/s, "
               f"max_memory_allocated {peak} bytes; per request, inversion median "
               f"{med['inversion']:.3f} ms and post-processing median "
               f"{med['post-processing']:.3f} ms (host) [{card}]", flush=True)
@@ -1155,6 +1327,14 @@ def tta_phase(card, seed, rows):
     for row in rows:
         row["launches"] = by_dtype[row["_key"][0]][row["_key"]]
         assert row["launches"] > 0, row["name"]
+    up_per_request = {grid: FOLDS * n for grid, n in UPSAMPLE_CLASSES}
+    for row in up_rows:
+        if row["_key"][1:3] == (str(torch.bfloat16), TTA_BATCH):
+            # serving runs no gradient
+            row["launches"] = (up_per_request[tuple(row["_key"][3:])]
+                               if row["_key"][0] == "fwd" else 0)
+    upsample_totals("per TTA request", up_rows, "fwd", torch.bfloat16, TTA_BATCH, up_per_request,
+                    card)
 
 
 def affine_part(card, seed, folds, predictor, pool):
@@ -1726,12 +1906,14 @@ def profile_train_step(step, state, batch, generator, name, card):
         print(f"profile {name} train step: {label} {by_label[needle]:.3f} ms in "
               f"{sum(e.count for e in picked)} launches, of {busy_ms:.3f} ms device time",
               flush=True)
+    upsample_profile(events, f"{name} train step", busy_ms)
     return by_label["conv3x3_s1p1_"], by_label["dw_"], busy_ms
 
 
-def train_phase(card, seed, rows):
+def train_phase(card, seed, rows, up_rows):
     """The dmri_hippo train step on the card, f32 then bf16; fills the
-    launches per step of the gradient kernels' rows."""
+    launches per step of the gradient kernels' rows and of the N=8
+    upsample rows."""
     rng = np.random.default_rng(seed + 2)
     state_dict = flax_to_state_dict(flax_weights(rng))
     batch_cf = train_batch(rng, SUBJECTS_PER_REQUEST)
@@ -1754,6 +1936,7 @@ def train_phase(card, seed, rows):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        upsample.reset_launch_counts()
         times, losses = [], []
         for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -1773,6 +1956,10 @@ def train_phase(card, seed, rows):
              CONVS_PER_FORWARD * TRAIN_STEPS], counts
         assert counts == expected_train_launches(dtype, TRAIN_STEPS, half_batch), counts
         per_step[str(dtype)] = counts
+        up = upsample_counts()
+        assert [c.total() for c in up.values()] == [UPSAMPLES_PER_FORWARD * TRAIN_STEPS] * 2, up
+        assert up == {kind: expected_upsamples(dtype, TRAIN_STEPS, half_batch)
+                      for kind in ("fwd", "dx")}, up
         med = statistics.median(times)
         print(f"train {name} steps: " + ", ".join(f"{t:.3f}" for t in times) + " ms", flush=True)
         print(f"train {name}: median {med:.3f} ms per step, "
@@ -1780,7 +1967,8 @@ def train_phase(card, seed, rows):
               f"{peak} bytes; losses " + ", ".join(f"{v:.6f}" for v in losses)
               + f"; launches per step forward {counts['fwd'].total() // TRAIN_STEPS}, "
               f"dX {counts['dx'].total() // TRAIN_STEPS}, dW {counts['dw'].total() // TRAIN_STEPS}"
-              f" [{card}]", flush=True)
+              f", upsample {up['fwd'].total() // TRAIN_STEPS} + gradient "
+              f"{up['dx'].total() // TRAIN_STEPS} [{card}]", flush=True)
 
     moved = [k for k, v in state.batch_stats.items() if not torch.equal(v.cpu(), state_dict[k])]
     assert len(moved) == len(state.batch_stats), "running statistics that did not move"
@@ -1804,6 +1992,13 @@ def train_phase(card, seed, rows):
         count = per_step[row["_key"][0]][row["_kind"]][row["_key"]]
         assert count % TRAIN_STEPS == 0 and count > 0, (row["name"], count)
         row["launches"] = count // TRAIN_STEPS
+    up_per_step = dict(UPSAMPLE_CLASSES)
+    for row in up_rows:
+        if row["_key"][1:3] == (str(torch.float32), half_batch):
+            row["launches"] = up_per_step[tuple(row["_key"][3:])]
+    for kind in ("fwd", "dx"):
+        upsample_totals("per train step", up_rows, kind, torch.float32, half_batch, up_per_step,
+                        card)
     return state_dict, batch_cf
 
 
@@ -2279,7 +2474,7 @@ def without_contour_images(context):
 def uncounted():
     """Leave the kernels' launch counts as they were: for launches that
     check the main path rather than belong to it."""
-    wrappers = (conv3x3_s1p1, conv3x3_s1p1_dx, conv3x3_s1p1_dw)
+    wrappers = (conv3x3_s1p1, conv3x3_s1p1_dx, conv3x3_s1p1_dw, *upsample.WRAPPERS)
     saved = [(w.launches, Counter(w.launches_by_shape)) for w in wrappers]
     try:
         yield
@@ -4911,9 +5106,9 @@ def run_phases(args, card):
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    build.build(conv3x3.SOURCES)
+    build.build(conv3x3.SOURCES + [upsample.SOURCE])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for source in conv3x3.SOURCES:
+    for source in conv3x3.SOURCES + [upsample.SOURCE]:
         print(f"{source}:\n" + build.build_logs.get(source, "(library was already built)").strip(),
               flush=True)
     t0 = time.perf_counter()
@@ -4949,6 +5144,7 @@ def run_phases(args, card):
         check_classes(device, args.seed + 16, card, 2 * MESH_BATCH, CONV_CLASSES),
         grad_kernel_phase(device, 2 * MESH_BATCH, args.seed + 16, card, timing=None)))
     spatial_rows = phase("kernels spatial", spatial_kernel_phase, device, args.seed + 17, card)
+    up_rows = phase("kernels upsample", upsample_phase, device, args.seed + 18, card)
     ms_rows = phase("msseg2 kernels", kernel_phase, device, 1, args.seed + 6, card,
                     MS_CONV_CLASSES)
     phase("msseg2 large class", check_classes, device, args.seed + 8, card, MS_LARGE_BATCH,
@@ -4960,11 +5156,11 @@ def run_phases(args, card):
         + grad_kernel_phase(device, MS_TRAIN_BATCH, args.seed + 14, card, MS_CONV_CLASSES,
                             MS_IN_CHANNELS, timing=MS_TRAIN_TIMING))
     phase("slice", slice_phase, card, args.seed, rows)
-    phase("tta", tta_phase, card, args.seed, tta_rows)
+    phase("tta", tta_phase, card, args.seed, tta_rows, up_rows)
     phase("msseg2", msseg2_phase, card, args.seed, ms_rows)
     with tempfile.TemporaryDirectory() as tmp:
         phase("serving determinism", serving_determinism, card, args.seed, tmp)
-    state_dict, batch_cf = phase("train", train_phase, card, args.seed, grad_rows)
+    state_dict, batch_cf = phase("train", train_phase, card, args.seed, grad_rows, up_rows)
     ms_root = tempfile.mkdtemp(prefix="msseg2-")
     write_msseg2_dataset(ms_root, args.seed + 11)
     phase("msseg2-train", ms_train_phase, card, args.seed, ms_train_rows, ms_root)
@@ -5012,7 +5208,7 @@ def run_phases(args, card):
 
     return [{key: value for key, value in row.items() if not key.startswith("_")}
             for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows
-            + cascade_rows + spatial_rows]
+            + cascade_rows + spatial_rows + up_rows]
 
 
 def main() -> int:

@@ -5,7 +5,9 @@ through ``conv3d``: the 3x3x3 / stride 1 / padding 1 class goes to the
 hand-written kernels through their autograd Function (``ops/conv3x3.py``;
 plain versions on CPU tensors), any other shape to ``F.conv3d``, whose
 gradients are cuDNN's, as the JAX package sends those to XLA. Transposed
-convs (``conv_transpose3d``) go to ``F.conv_transpose3d``.
+convs (``conv_transpose3d``) go to ``F.conv_transpose3d``. The
+align-corners 2x trilinear upsample goes to its hand kernels
+(``ops/upsample.py``), forward and gradient.
 
 cuDNN runs float32 convs in TF32 while ``torch.backends.cudnn.allow_tf32``
 is True, PyTorch's default, about 1e-3 away from float32. Every library
@@ -41,6 +43,7 @@ import torch.nn.functional as F
 
 from ..utils.timer import count
 from .conv3x3 import Conv3x3S1P1
+from .upsample import UpsampleTrilinear2x
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -229,11 +232,13 @@ def avg_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 def upsample_trilinear2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """Trilinear 2x upsample of (N, W, H, D, C), as torch
     ``nn.Upsample(scale_factor=2, mode='trilinear', align_corners=True)``;
-    an axis of size 1 repeats its one value."""
-    _, w, h, d, _ = x.shape
-    y = F.interpolate(x.permute(0, 4, 1, 2, 3), size=(2 * w, 2 * h, 2 * d),
-                      mode="trilinear", align_corners=align_corners)
-    return y.permute(0, 2, 3, 4, 1)
+    an axis of size 1 repeats its one value. Through the hand kernel's
+    autograd Function (``ops/upsample.py``; its plain version on a CPU
+    tensor). ``align_corners=False`` is kept for the JAX package's signature
+    and raises: no caller passes it."""
+    if not align_corners:
+        raise ValueError("upsample_trilinear2x runs only align_corners=True")
+    return UpsampleTrilinear2x.apply(x)
 
 
 def upsample_trilinear2x_sharded(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
