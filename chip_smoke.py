@@ -48,7 +48,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    N=32 in bfloat16 and the train step's N=8 in float32, beside the plain
    version (F.interpolate and ATen's gradient on the channels-last views),
    ATen on contiguous NCDHW tensors and the bound (9x the input grid's
-   bytes at 3.35 TB/s); launches from phases 6 and 8.
+   bytes at 3.35 TB/s); launches from phases 6 and 8. `kernels swin`
+   (run before phase 3): the forward at the 12 classes of SwinUNETR(1 -> 14,
+   feature_size=48)'s 3^3 convs on a 96^3 window (1->48, 48->48 and
+   96->48 at 96^3 down to 768->768 at 3^3) at the sliding window's N=4 in
+   bfloat16, the type its BTCV serving runs in, held against the plain
+   version (bit for bit on integers) and timed beside it, cuDNN and the
+   bound (rows of the JSON); then one forward of SegModel(SwinUNETR(1 ->
+   14), compute_dtype="bfloat16") at N=4 on 96^3 with its 20 launches
+   asserted by shape and its logits finite.
 5. slice: dmri_hippo whole-volume inference, as a user calls it:
    StandardPredict(sagittal_split=True, device_argmax=True).predict on
    SegModel(NestedResUNet(3 -> 2, filters=40)) with random weights made in the
@@ -319,6 +327,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 The line before the last is a JSON object listing every kernel; the last line
 is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 
+`python3 chip_smoke.py --swin` runs the build and `kernels swin` alone.
+
 `python3 chip_smoke.py --compare PARENT . . PARENT` runs none of the phases:
 it times msseg2 competition requests in each checkout given (one process
 each, on that checkout's port), to hold a commit against its parent on one
@@ -363,7 +373,7 @@ from segmentation_pipeline_torch import (SGD, Adam, EnsembleAffines, EnsembleFli
 from segmentation_pipeline_torch.core.nifti import read_nifti, write_nifti
 from segmentation_pipeline_torch.models import (BatchNorm, BlurConv3d, BlurConvTranspose3d,
                                                 Conv3d, ModularUNet, NestedResUNet,
-                                                flax_to_state_dict)
+                                                SwinUNETR, flax_to_state_dict)
 from segmentation_pipeline_torch import native
 from segmentation_pipeline_torch.ops import build, conv3x3, convolution
 from segmentation_pipeline_torch.ops.conv3x3 import (conv3x3_s1p1, conv3x3_s1p1_dw,
@@ -1648,6 +1658,51 @@ def check_classes(device, seed, card, n, classes):
             check_exact(name, conv3x3_s1p1, conv3x3_s1p1_plain, x, k)
             del x, k
             torch.cuda.empty_cache()
+
+
+# SwinUNETR(1 -> 14, feature_size=48) on the BTCV recipe's 96^3 window: the
+# 3^3 convs of its res blocks, ((W, H, D), Cin, Cout, launches per forward);
+# its 1^3, patch and transposed convs are GEMMs or cuDNN's
+SWIN_IN, SWIN_OUT, SWIN_ROI = 1, 14, (96, 96, 96)
+SWIN_CONV_CLASSES = [
+    ((96,) * 3, 1, 48, 1), ((96,) * 3, 48, 48, 2), ((96,) * 3, 96, 48, 1),
+    ((48,) * 3, 48, 48, 3), ((48,) * 3, 96, 48, 1),
+    ((24,) * 3, 96, 96, 3), ((24,) * 3, 192, 96, 1),
+    ((12,) * 3, 192, 192, 3), ((12,) * 3, 384, 192, 1),
+    ((6,) * 3, 384, 384, 1), ((6,) * 3, 768, 384, 1),
+    ((3,) * 3, 768, 768, 2),
+]
+# the recipe's sw_batch_size: every sliding-window forward runs at N=4
+SWIN_BATCH = 4
+
+
+def swin_phase(device, seed, card):
+    """SwinUNETR's conv classes at the serving batch in bfloat16: the
+    kernels line's rows (kernel_phase), then one model forward at N=4 with
+    its launches by shape asserted."""
+    rows = kernel_phase(device, SWIN_BATCH, seed, card, SWIN_CONV_CLASSES, (torch.bfloat16,),
+                        MS_TRAIN_TIMING)
+    model = SegModel(SwinUNETR(SWIN_IN, SWIN_OUT), seed=seed, compute_dtype="bfloat16",
+                     device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.rand((SWIN_BATCH, SWIN_IN, *SWIN_ROI), generator=gen, device=device)
+    reset_launch_counts()
+    logits = model(x)
+    torch.cuda.synchronize()
+    counts = Counter(conv3x3_s1p1.launches_by_shape)
+    expected = Counter({(str(torch.bfloat16), SWIN_BATCH, *spatial, cin, cout): n
+                        for spatial, cin, cout, n in SWIN_CONV_CLASSES})
+    if counts != expected:
+        raise AssertionError(f"swin forward: launches {dict(counts)}, expected {dict(expected)}")
+    if not (logits.shape == (SWIN_BATCH, SWIN_OUT, *SWIN_ROI) and logits.isfinite().all()):
+        raise AssertionError(f"swin forward: logits {tuple(logits.shape)}, finite "
+                             f"{bool(logits.isfinite().all())}")
+    for row in rows:
+        row["launches"] = counts[row["_key"]]
+    print(f"swin forward N={SWIN_BATCH} bf16 on {'x'.join(map(str, SWIN_ROI))}: "
+          f"{sum(counts.values())} launches in {len(counts)} classes as expected, logits finite "
+          f"[{card}]", flush=True)
+    return rows
 
 
 def ms_expected_launches(dtype, forwards, batch):
@@ -5130,6 +5185,13 @@ def run_phases(args, card):
               f"{time.perf_counter() - started:.1f} s)", flush=True)
         return out
 
+    def public(rows):
+        return [{key: value for key, value in row.items() if not key.startswith("_")}
+                for row in rows]
+
+    swin_rows = phase("kernels swin", swin_phase, device, args.seed + 19, card)
+    if args.swin:
+        return public(swin_rows)
     rows = phase("kernels N=8", kernel_phase, device, half_batch, args.seed, card)
     tta_rows = phase("kernels N=32", kernel_phase, device, TTA_BATCH, args.seed + 4, card)
     # the affine TTA request's batch (affine_part, cli_hippo_serving): checked there too
@@ -5206,9 +5268,8 @@ def run_phases(args, card):
     step_totals(f"per spatial train step on each of {MESH_WORLD} ranks (N={SPATIAL_BATCH})",
                 spatial_rows, lambda row: row["launches"], card)
 
-    return [{key: value for key, value in row.items() if not key.startswith("_")}
-            for row in rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows
-            + cascade_rows + spatial_rows + up_rows]
+    return public(rows + tta_rows + grad_rows + ms_rows + ms_train_rows + qsm_rows
+                  + cascade_rows + spatial_rows + up_rows + swin_rows)
 
 
 def main() -> int:
@@ -5217,6 +5278,8 @@ def main() -> int:
     parser.add_argument("--compare", nargs="+", metavar="CHECKOUT",
                         help="only time msseg2 competition requests in each checkout given "
                              "(compare_requests), e.g. parent . . parent")
+    parser.add_argument("--swin", action="store_true",
+                        help="only build the kernels and run the kernels swin phase (swin_phase)")
     parser.add_argument("--mesh-rank", metavar="FOLDER",
                         help="run one rank of the mesh phase's gloo world on the inputs in "
                              "FOLDER (the phase starts its ranks so, through launch_multihost)")

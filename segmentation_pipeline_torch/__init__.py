@@ -29,8 +29,11 @@ W-sharded sliding window behind PatchPredict(volume_sharded=True)). The
 configurations of dmri_hippo and msseg2 live in
 ``segmentation_pipeline_torch.research``. The 3x3x3 convs and their input
 and weight gradients run on hand-written CUDA kernels
-(csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Entry points run on the
-card unless the caller passes ``device="cpu"``.
+(csrc/conv3x3_s1p1.cu, csrc/conv3x3_s1p1_dw.cu). Swin UNETR (SwinUNETR:
+shifted-window attention, InstanceNorm residual decoder; MONAI's model,
+which the JAX package does not have) serves through SegModel and
+PatchPredict and trains through make_train_step like the other models.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from .core import (Image, LabelMap, ScalarImage, Subject, collate_subjects, read_nifti,
                    slice_volume, write_nifti)
@@ -47,7 +50,8 @@ from .evaluators import (ContourImageEvaluator, Evaluator, ImageRegionEvaluator,
                          SegmentationEvaluator, msseg_detection_test)
 from .loggers import FileLogger, Logger, NonLogger, WandbLogger
 from .models import (BlurConv3d, BlurConvTranspose3d, Block3d, ModularUNet, NestedResUNet,
-                     StochasticMatrix, WSConv3d, flax_to_state_dict, state_dict_to_flax)
+                     StochasticMatrix, SwinUNETR, WSConv3d, flax_to_state_dict,
+                     state_dict_to_flax)
 from .models.ensemble import (EnsembleAffines, EnsembleFlips, EnsembleModels,
                               EnsembleOrientations)
 from .parallel.mesh import MeshRecipe, make_mesh

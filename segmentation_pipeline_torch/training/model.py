@@ -14,7 +14,12 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.components import BatchNorm, Conv3d, _ZeroBiasConv
+from ..models.components import (BatchNorm, Conv3d, LayerNorm, Linear, PatchConv3d,
+                                 PatchConvTranspose3d, _ZeroBiasConv)
+from ..models.swin_unetr import WindowAttention
+
+# the modules whose parameters are drawn from the seed's generator
+_DRAWN = (Conv3d, _ZeroBiasConv, Linear, PatchConv3d, PatchConvTranspose3d, WindowAttention)
 
 
 def to_channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -47,15 +52,17 @@ class SegModel:
     def ensure_initialized(self):
         """Initialize every parameter from ``seed`` unless weights were
         loaded: torch's Conv3d init for convs (the kernels of WSConv3d,
-        BlurConv3d and BlurConvTranspose3d too, whose biases start at zero),
-        ones/zeros for BatchNorm."""
+        BlurConv3d and BlurConvTranspose3d too, whose biases start at zero)
+        and torch's Linear init for dense layers, ones/zeros for BatchNorm and
+        LayerNorm, and MONAI's for Swin UNETR's relative position bias
+        tables."""
         if self.initialized:
             return
         generator = torch.Generator().manual_seed(self.seed)
         for module in self.module.modules():
-            if isinstance(module, (Conv3d, _ZeroBiasConv)):
+            if isinstance(module, _DRAWN):
                 module.reset_parameters(generator)
-            elif isinstance(module, BatchNorm):
+            elif isinstance(module, (BatchNorm, LayerNorm)):
                 module.reset_parameters()
         self.initialized = True
 

@@ -71,12 +71,14 @@ def test_split_and_flip_matches_jax():
 
 
 @pytest.mark.parametrize("n_channels", [2, 255, 256])
-def test_idx_dtype_and_onehot_match_jax(n_channels):
+def test_idx_dtype_and_onehot_match_jax(n_channels, monkeypatch):
     assert str(idx_dtype_for(n_channels)).split(".")[-1] == \
         np.dtype(jpred.idx_dtype_for(n_channels)).name
     ids = np.random.default_rng(1).integers(0, n_channels, size=(2, 3, 4))
-    np.testing.assert_array_equal(tpred.ids_to_onehot(ids, n_channels, 1),
-                                  jpred.ids_to_onehot(ids, n_channels, 1))
+    for threads in (1, 2):  # one slab, and the leading axis in slabs over threads
+        monkeypatch.setattr(torch, "get_num_threads", lambda: threads)
+        np.testing.assert_array_equal(tpred.ids_to_onehot(ids, n_channels, 1),
+                                      jpred.ids_to_onehot(ids, n_channels, 1))
 
 
 @pytest.mark.parametrize("device_argmax", [False, True])
